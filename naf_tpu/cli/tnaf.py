@@ -1,8 +1,8 @@
 """tnaf — NAF compressor CLI (ennaf-compatible flag surface).
 
 Flag parity target: ennaf/src/ennaf.c:329-430.  Differences: compression
-runs through the TPU pipeline in RAM, so --temp-dir/--name/--keep-temp-files
-are accepted for compatibility but are no-ops.
+runs in RAM, so --temp-dir/--name/--keep-temp-files are accepted for
+compatibility but are no-ops.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import os
 import sys
 
 from ..codec import MAX_CLEVEL, MIN_CLEVEL, WINDOWLOG_MAX, WINDOWLOG_MIN
+from ..codec.syszstd import LibzstdMissing
 from ..format import constants as C
 from ..ops.histogram import format_unexpected_report
 from ..pipeline.encoder import EncodeOptions
@@ -60,15 +61,15 @@ Options:
                        --long); all archives remain decodable by the
                        reference unnaf.  'device' is accepted but routes to
                        'native': the JAX match-finder measured a strict
-                       loss on v5e (slower AND larger; BENCH device_engine
-                       row) — per-element sorts/gathers don't fit the TPU
-                       cost model, so the judgment is recorded, not shipped
+                       loss (slower AND larger), so the judgment is
+                       recorded, not shipped
   --threads N        - zstd worker threads per section (default: all
                        cores; 0 = single-threaded). The output is still
                        one reference-decodable frame per section
   --device           - Run the block-sharded device pipeline (JAX mesh
-                       over all visible TPU/CPU devices); archives are
-                       byte-identical to the host pipeline's
+                       over all visible GPUs; JAX_PLATFORMS=cpu runs it on
+                       the CPU); archives are byte-identical to the host
+                       pipeline's
   -h, --help         - Show help
   -V, --version      - Show version
 """ % (MIN_CLEVEL, MAX_CLEVEL, WINDOWLOG_MIN, WINDOWLOG_MAX)
@@ -215,12 +216,12 @@ def main(argv: list[str] | None = None) -> int:
                         _die(f'unknown engine "{argv[i]}"')
                     opts.engine = argv[i]
                     if opts.engine == "device":
-                        # measured strict loss on v5e (slower AND larger;
-                        # BENCH device_engine row) — route to the native
-                        # engine rather than ship a known regression
+                        # the device match-finder measured slower AND
+                        # larger than the native engine — route to the
+                        # native engine rather than ship a known regression
                         sys.stderr.write(
                             "tnaf: --engine device is demoted to 'native' "
-                            "(measured loss on TPU; see README)\n")
+                            "(measured loss; see README)\n")
                         opts.engine = "native"
                     i += 1
                     continue
@@ -319,7 +320,7 @@ def main(argv: list[str] | None = None) -> int:
             i += 1
 
     if print_version:
-        _msg(f"{PROG} - NAF compressor (TPU), version {__version__}, {TOOL_DATE}\n")
+        _msg(f"{PROG} - NAF compressor (JAX), version {__version__}, {TOOL_DATE}\n")
         return 0
 
     if force_stdout and out_path is not None:
@@ -399,20 +400,29 @@ def main(argv: list[str] | None = None) -> int:
             # keeping the default CLI cold start jax-free); large inputs
             # and pipes stream chunk-by-chunk through the mesh at O(chunk)
             # host memory (parallel/stream.py), small files go in-memory
-            if (opts.extended or opts.engine != "zstd"
-                    or (in_size is not None and in_size < stream_threshold)):
-                from ..parallel.pipeline import encode_sharded
+            from ..utils.trace import device_session, trace_note
 
-                blob, stats = encode_sharded(inf.read(), opts)
-                outf.write(blob)
-            else:
-                from ..parallel.stream import DeviceScanEngine
+            with device_session():
+                if (opts.extended or opts.engine != "zstd"
+                        or (in_size is not None
+                            and in_size < stream_threshold)):
+                    from ..parallel.pipeline import encode_sharded
 
-                dev_chunk = int(os.environ.get(
-                    "NAF_TPU_DEVICE_CHUNK", str(64 << 20)))
-                stats = encode_stream(inf, outf, opts,
-                                      chunk_size=dev_chunk,
-                                      engine=DeviceScanEngine())
+                    blob, stats = encode_sharded(inf.read(), opts)
+                    outf.write(blob)
+                else:
+                    from ..parallel.stream import DeviceScanEngine
+
+                    dev_chunk = int(os.environ.get(
+                        "NAF_TPU_DEVICE_CHUNK", str(64 << 20)))
+                    engine = DeviceScanEngine()
+                    stats = encode_stream(inf, outf, opts,
+                                          chunk_size=dev_chunk,
+                                          engine=engine)
+                    trace_note("device-stream",
+                               device_chunks=engine.device_chunks,
+                               native_chunks=engine.native_chunks,
+                               fault_chunks=engine.fault_chunks)
         elif (opts.extended or opts.engine != "zstd"
                 or (in_size is not None and in_size < stream_threshold)):
             from ..pipeline.encoder import encode as _encode
@@ -421,7 +431,7 @@ def main(argv: list[str] | None = None) -> int:
             outf.write(blob)
         else:
             stats = encode_stream(inf, outf, opts)
-    except InputError as e:
+    except (InputError, LibzstdMissing) as e:
         if outf is not sys.stdout.buffer:
             outf.close()
             try:

@@ -9,6 +9,7 @@ import io
 import os
 import sys
 
+from ..codec.syszstd import LibzstdMissing
 from ..format import constants as C
 from ..format.container import NafFormatError
 from ..format.vle import VleError
@@ -199,7 +200,7 @@ def main(argv: list[str] | None = None) -> int:
             i += 1
 
     if print_version:
-        _msg(f"{PROG} - NAF decompressor (TPU), version {__version__}, {TOOL_DATE}\n")
+        _msg(f"{PROG} - NAF decompressor (JAX), version {__version__}, {TOOL_DATE}\n")
         return 0
 
     if force_stdout and out_path is not None:
@@ -254,18 +255,23 @@ def main(argv: list[str] | None = None) -> int:
     try:
         if use_device and out_type in (FASTA, MASKED_FASTA, UNMASKED_FASTA,
                                        FASTQ):
+            from ..utils.trace import device_session
+
             dec.r.read_counters()
             dec.r.skip_section("title")
-            if out_type == FASTQ:
-                out_f.write(dec.fastq_device())
-            else:
-                out_f.write(dec.fasta_device(
-                    masking=None if out_type != UNMASKED_FASTA else False))
+            with device_session():
+                if out_type == FASTQ:
+                    out_f.write(dec.fastq_device())
+                else:
+                    out_f.write(dec.fasta_device(
+                        masking=None if out_type != UNMASKED_FASTA
+                        else False))
         else:
             streamed = _maybe_stream(dec, out_type, out_f)
             if not streamed:
                 out_f.write(_render(dec, out_type))
-    except (NafFormatError, VleError, DecodeError, ValueError) as e:
+    except (NafFormatError, VleError, DecodeError, ValueError,
+            LibzstdMissing) as e:
         _die(str(e))
 
     out_f.flush()

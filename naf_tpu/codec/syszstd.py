@@ -1,25 +1,22 @@
-"""ctypes binding to the SYSTEM libzstd for section compression.
+"""ctypes binding to the SYSTEM libzstd: section compression and
+decompression.
 
-Why this exists: the reference binaries link the system libzstd (1.5.4 on
-this image) while the Python ``zstandard`` wheel bundles its own newer copy
-(1.5.7), whose high-level match finder trades ~4% ratio on packed DNA at
-levels 17-19.  Ratio parity with the locally built reference requires the
-locally linked codec, so the encode path binds the system library directly
-and replicates ennaf's exact call shape
-(/root/reference/ennaf/src/compressor.c:7-21: setParameter(LDM, windowLog)
-then level, streamed).  Decompression stays on ``zstandard`` — frames are
-interchangeable.
+The reference binaries link the system libzstd, so binding the same library
+keeps ratio parity with them at every level, and replicates ennaf's exact
+call shape (ennaf/src/compressor.c:7-21: setParameter(LDM, windowLog) then
+level, streamed).  It is also the only entropy library the default engine
+needs: no Python zstd package is imported on the main path.
 
-Falls back cleanly: ``load()`` returns None when no system libzstd is
-available and the backend keeps using ``zstandard`` (the choice is
-per-process, so the byte-identity invariants across in-memory/streaming/
-sharded paths are unaffected).
+``load()`` returns None when no system libzstd is available; ``require()``
+raises ``LibzstdMissing`` then, whose message names the self-contained
+``--engine native`` alternative.
 """
 
 from __future__ import annotations
 
 import ctypes as ct
 import ctypes.util
+import threading
 from typing import Optional
 
 # stable public ZSTD_cParameter / ZSTD_EndDirective enum values
@@ -30,20 +27,27 @@ _C_CONTENTSIZE = 200
 _C_NBWORKERS = 400
 _E_CONTINUE = 0
 _E_END = 2
+_D_WINDOWLOG_MAX = 100
+_WINDOWLOG_MAX = 31
 
 _lib = None
 _loaded = False
+_lock = threading.Lock()
 
 
 def load():
-    """The system libzstd handle, or None (memoized)."""
+    """The system libzstd handle, or None (memoized; section compressors
+    call this from several threads at once)."""
     global _lib, _loaded
-    if _loaded:
-        return _lib
-    _loaded = True
-    path = ctypes.util.find_library("zstd")
-    if not path:
-        return None
+    with _lock:
+        if not _loaded:
+            _lib = _open()
+            _loaded = True
+    return _lib
+
+
+def _open():
+    path = ctypes.util.find_library("zstd") or "libzstd.so.1"
     try:
         lib = ct.CDLL(path)
         lib.ZSTD_versionNumber.restype = ct.c_uint
@@ -61,10 +65,31 @@ def load():
         lib.ZSTD_isError.restype = ct.c_uint
         lib.ZSTD_isError.argtypes = [ct.c_size_t]
         lib.ZSTD_CStreamOutSize.restype = ct.c_size_t
-        _lib = lib
+        lib.ZSTD_createDCtx.restype = ct.c_void_p
+        lib.ZSTD_freeDCtx.argtypes = [ct.c_void_p]
+        lib.ZSTD_DCtx_setParameter.restype = ct.c_size_t
+        lib.ZSTD_DCtx_setParameter.argtypes = [ct.c_void_p, ct.c_int, ct.c_int]
+        lib.ZSTD_decompressStream.restype = ct.c_size_t
+        lib.ZSTD_decompressStream.argtypes = [ct.c_void_p, ct.c_void_p,
+                                              ct.c_void_p]
+        lib.ZSTD_DStreamOutSize.restype = ct.c_size_t
     except OSError:
         return None
-    return _lib
+    return lib
+
+
+class LibzstdMissing(RuntimeError):
+    """No usable system libzstd (>= 1.4) for the default 'zstd' engine."""
+
+
+def require():
+    """The system libzstd handle; raises LibzstdMissing when absent."""
+    handle = load()
+    if handle is None:
+        raise LibzstdMissing(
+            "system libzstd (>= 1.4) not found; install it, or use "
+            "--engine native (the built-in zstd engine)")
+    return handle
 
 
 class _Buf(ct.Structure):          # ZSTD_outBuffer / ZSTD_inBuffer layout
@@ -75,17 +100,15 @@ class _Buf(ct.Structure):          # ZSTD_outBuffer / ZSTD_inBuffer layout
 class SysZstdCompressor:
     """Streaming single-frame compressor over the system libzstd.
 
-    Mirrors ``zstandard``'s compressobj surface used by SectionCompressor:
-    ``compress(data) -> bytes`` and ``flush_finish() -> bytes``.
+    The surface SectionCompressor uses: ``compress(data) -> bytes`` and
+    ``flush_finish() -> bytes``.
     ``pledged_size`` turns on one-shot-style window/table right-sizing and
     a content-size header (used by the buffered small-section path).
     """
 
     def __init__(self, level: int, window_log: int = 0, threads: int = 0,
                  pledged_size: Optional[int] = None):
-        lib = load()
-        assert lib is not None
-        self._lib = lib
+        self._lib = lib = require()
         self._cctx = lib.ZSTD_createCCtx()
         if not self._cctx:
             raise MemoryError("ZSTD_createCCtx failed")
@@ -152,10 +175,6 @@ class SysZstdCompressor:
     def flush_finish(self) -> bytes:
         return self._pump(ct.c_char_p(b""), 0, _E_END)
 
-    def flush(self, _mode=None) -> bytes:
-        """zstandard-compressobj-compatible spelling of flush_finish."""
-        return self.flush_finish()
-
 
 def compress_oneshot(payload: bytes, level: int, window_log: int = 0) -> bytes:
     """One frame with pledged source size (window right-sized by libzstd)."""
@@ -163,3 +182,80 @@ def compress_oneshot(payload: bytes, level: int, window_log: int = 0) -> bytes:
                           pledged_size=len(payload))
     head = c.compress(payload)
     return head + c.flush_finish()
+
+
+class SysZstdDecompressor:
+    """Streaming decoder of one zstd frame (windows up to 2^31 bytes, the
+    largest ``--long`` the encoder writes).  ``decompress(chunk)`` returns
+    the bytes decoded so far from the fed input."""
+
+    def __init__(self):
+        handle = require()
+        self._lib = handle
+        self._dctx = handle.ZSTD_createDCtx()
+        if not self._dctx:
+            raise MemoryError("ZSTD_createDCtx failed")
+        r = handle.ZSTD_DCtx_setParameter(self._dctx, _D_WINDOWLOG_MAX,
+                                          _WINDOWLOG_MAX)
+        if handle.ZSTD_isError(r):
+            raise RuntimeError("ZSTD_DCtx_setParameter(windowLogMax) failed")
+        self._out_cap = max(int(handle.ZSTD_DStreamOutSize()), 1 << 17)
+        self._outbuf = ct.create_string_buffer(self._out_cap)
+        self.finished = False
+
+    def __del__(self):
+        dctx = getattr(self, "_dctx", None)
+        if dctx:
+            self._lib.ZSTD_freeDCtx(dctx)
+            self._dctx = None
+
+    def decompress(self, data) -> bytes:
+        data = bytes(data)
+        inb = _Buf(ct.cast(ct.c_char_p(data), ct.c_void_p), len(data), 0)
+        chunks = []
+        while True:
+            outb = _Buf(ct.cast(self._outbuf, ct.c_void_p), self._out_cap, 0)
+            r = self._lib.ZSTD_decompressStream(self._dctx, ct.byref(outb),
+                                                ct.byref(inb))
+            if self._lib.ZSTD_isError(r):
+                raise RuntimeError("corrupt zstd stream")
+            if outb.pos:
+                chunks.append(self._outbuf.raw[:outb.pos])
+            if r == 0:
+                self.finished = True
+                break
+            if inb.pos == inb.size and outb.pos < self._out_cap:
+                break
+        return b"".join(chunks)
+
+
+def decompress(frame: bytes, size: int) -> bytes:
+    """Decode one complete frame whose decoded size is known to be ``size``
+    (NAF stores every section's original size)."""
+    handle = require()
+    dctx = handle.ZSTD_createDCtx()
+    if not dctx:
+        raise MemoryError("ZSTD_createDCtx failed")
+    try:
+        r = handle.ZSTD_DCtx_setParameter(dctx, _D_WINDOWLOG_MAX,
+                                          _WINDOWLOG_MAX)
+        if handle.ZSTD_isError(r):
+            raise RuntimeError("ZSTD_DCtx_setParameter(windowLogMax) failed")
+        # one spare byte: a frame that decodes to more than ``size`` fills
+        # it instead of stopping silently at the cap
+        out = ct.create_string_buffer(size + 1)
+        src = bytes(frame)
+        inb = _Buf(ct.cast(ct.c_char_p(src), ct.c_void_p), len(src), 0)
+        outb = _Buf(ct.cast(out, ct.c_void_p), size + 1, 0)
+        while True:
+            r = handle.ZSTD_decompressStream(dctx, ct.byref(outb),
+                                             ct.byref(inb))
+            if handle.ZSTD_isError(r):
+                raise RuntimeError("corrupt zstd stream")
+            if r == 0 or outb.pos > size or inb.pos == inb.size:
+                break
+        if r != 0 or outb.pos != size:
+            raise RuntimeError("section decompression size mismatch")
+        return out.raw[:size]
+    finally:
+        handle.ZSTD_freeDCtx(dctx)

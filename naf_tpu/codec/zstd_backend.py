@@ -4,7 +4,10 @@ Each NAF section is one zstd frame stored minus its 4-byte frame magic
 (compressor parity: ennaf/src/compressor.c:150-173; decoder re-injects it,
 unnaf/src/utils.c:144-150).
 
-Design notes for the TPU build:
+Design notes:
+  * the default engine is the system libzstd (codec/syszstd.py), the
+    library the reference links; ``--engine native`` uses the built-in
+    engine (native/naf_zstd.cpp) instead;
   * compression of independent sections, and of job-split input within a
     section, runs on host CPU threads (``threads=N`` maps to zstd's internal
     job splitting, which still emits a single reference-decodable frame);
@@ -20,20 +23,8 @@ from typing import Iterator, Optional
 
 import os
 
-import zstandard as zstd
-
 from . import syszstd
 from ..format.constants import ZSTD_FRAME_MAGIC
-
-
-def _sys_zstd() -> bool:
-    """Prefer the SYSTEM libzstd for encoding: it is the codec the locally
-    built reference links, so ratio parity is exact at every level (the
-    zstandard wheel bundles a newer zstd whose high-level match finder
-    trades ~4% ratio on packed DNA at levels 17-19).  Per-process choice,
-    so cross-path byte-identity is unaffected."""
-    return (syszstd.load() is not None
-            and not os.environ.get("NAF_TPU_NO_SYSZSTD"))
 
 #: zstd window-log hard bounds (matches ZSTD_WINDOWLOG_MIN/MAX used by ennaf).
 WINDOWLOG_MIN = 10
@@ -41,21 +32,6 @@ WINDOWLOG_MAX = 31
 
 MIN_CLEVEL = -131072
 MAX_CLEVEL = 22
-
-
-def _compressor(level: int, window_log: int = 0, threads: int = 0) -> zstd.ZstdCompressor:
-    if window_log:
-        params = zstd.ZstdCompressionParameters.from_level(
-            level,
-            window_log=window_log,
-            enable_ldm=True,
-            threads=threads,
-        )
-        return zstd.ZstdCompressor(compression_params=params)
-    if threads:
-        params = zstd.ZstdCompressionParameters.from_level(level, threads=threads)
-        return zstd.ZstdCompressor(compression_params=params)
-    return zstd.ZstdCompressor(level=level)
 
 
 class SectionCompressor:
@@ -119,13 +95,9 @@ class SectionCompressor:
                 self._raw_n += mv.nbytes
                 return
             pieces, self._raw = self._raw, None
-            if _sys_zstd():
-                self._obj = syszstd.SysZstdCompressor(
-                    self._level, window_log=self._window_log,
-                    threads=self._threads)
-            else:
-                self._obj = _compressor(self._level, self._window_log,
-                                        self._threads).compressobj()
+            self._obj = syszstd.SysZstdCompressor(
+                self._level, window_log=self._window_log,
+                threads=self._threads)
             for p in pieces:
                 self._feed(memoryview(p))
         self._feed(mv)
@@ -160,16 +132,7 @@ class SectionCompressor:
                      max(WINDOWLOG_MIN, max(len(payload), 1).bit_length()))
         else:
             wl = 0
-        if _sys_zstd():
-            return syszstd.compress_oneshot(payload, self._level,
-                                            window_log=wl)
-        if wl:
-            params = zstd.ZstdCompressionParameters.from_level(
-                self._level, window_log=wl, enable_ldm=True)
-            cctx = zstd.ZstdCompressor(compression_params=params)
-        else:
-            cctx = zstd.ZstdCompressor(level=self._level)
-        return cctx.compress(payload)
+        return syszstd.compress_oneshot(payload, self._level, window_log=wl)
 
     def finish(self) -> bytes:
         """End the frame and return payload with the 4-byte magic stripped."""
@@ -183,7 +146,7 @@ class SectionCompressor:
         if self._buf:
             self._emit(self._obj.compress(self._buf))
             self._buf = bytearray()
-        tail = self._obj.flush(zstd.COMPRESSOBJ_FLUSH_FINISH)
+        tail = self._obj.flush_finish()
         if tail:
             self._chunks.append(tail)
         frame = b"".join(self._chunks)
@@ -253,13 +216,7 @@ def decompress_section(payload: bytes, uncompressed_size: int) -> bytes:
     """One-shot decode of a magic-stripped section payload."""
     if _DECODE_ENGINE == "native":
         return decompress_section_native(payload, uncompressed_size)
-    dctx = zstd.ZstdDecompressor(max_window_size=1 << WINDOWLOG_MAX)
-    out = dctx.decompress(
-        ZSTD_FRAME_MAGIC + payload, max_output_size=max(uncompressed_size, 1)
-    )
-    if len(out) != uncompressed_size:
-        raise RuntimeError("section decompression size mismatch")
-    return out
+    return syszstd.decompress(ZSTD_FRAME_MAGIC + payload, uncompressed_size)
 
 
 class SectionDecompressor:
@@ -290,8 +247,7 @@ class SectionDecompressor:
             self._got = 0
             self._parts: list = []
             return
-        dctx = zstd.ZstdDecompressor(max_window_size=1 << WINDOWLOG_MAX)
-        self._obj = dctx.decompressobj()
+        self._obj = syszstd.SysZstdDecompressor()
         self._first = True
 
     def feed(self, chunk: bytes) -> bytes:
@@ -760,7 +716,7 @@ class SpillingSectionCompressor(SectionCompressor):
         if self._buf:                       # drain MT staging remainder
             self._emit(self._obj.compress(self._buf))
             self._buf = bytearray()
-        tail = self._obj.flush(zstd.COMPRESSOBJ_FLUSH_FINISH)
+        tail = self._obj.flush_finish()
         if tail:
             self._chunks.append(tail)
         if self._file is None:

@@ -1,19 +1,23 @@
 """ctypes bridge to the native host runtime (libnaf_native.so).
 
-The TPU compute path (Pallas kernels, shard_map pipeline) works on
-device-resident data; this library is the *host runtime* fast path: a fused
+The device path (shard_map pipeline) works on device-resident data; this
+library is the *host runtime* fast path: a fused
 single-pass FASTA/FASTQ scanner and fused decode renderers, replacing the
 numpy implementations in ``naf_tpu.pipeline.parser`` / ``naf_tpu.ops`` on
 the host data path.  The numpy implementations remain the property-test
 oracle (and the fallback when no C++ toolchain is present).
 
-Build: ``make -C naf_tpu/native`` (done lazily on first import when g++ is
-available).  Disable entirely with ``NAF_TPU_NO_NATIVE=1``.
+Build: done lazily on first use when g++ is available, into the gitignored
+``naf_tpu/native/build/`` directory; the library's file name carries a hash
+of its sources and of the host's ISA flags, so any source edit (or another
+CPU) rebuilds it.  Disable entirely with
+``NAF_TPU_NO_NATIVE=1``.
 """
 
 from __future__ import annotations
 
 import ctypes as ct
+import hashlib
 import os
 import subprocess
 import threading
@@ -22,7 +26,7 @@ from typing import Optional
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libnaf_native.so")
+_SOURCES = ("naf_native.cpp", "naf_zstd.cpp", "Makefile")
 
 _lib: Optional[ct.CDLL] = None
 _lock = threading.Lock()
@@ -65,9 +69,34 @@ F_PACK_CARRY = 4
 F_ALLOW_PARTIAL = 8
 
 
-def _build() -> bool:
-    r = subprocess.run(["make", "-C", _DIR, "-s"], capture_output=True)
-    return r.returncode == 0 and os.path.exists(_SO)
+def _cpu_flags() -> bytes:
+    """The host's ISA flags (the build uses -march=native), so a checkout
+    shared between machines never loads a library built for another CPU."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return b""
+
+
+def _so_path() -> str:
+    """build/libnaf_native-<hash of sources, build flags and host ISA>.so"""
+    h = hashlib.sha256(_cpu_flags())
+    for name in _SOURCES:
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(_DIR, "build",
+                        f"libnaf_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(so: str) -> bool:
+    r = subprocess.run(["make", "-C", _DIR, "-s",
+                        f"OUT={os.path.relpath(so, _DIR)}"],
+                       capture_output=True)
+    return r.returncode == 0 and os.path.exists(so)
 
 
 def _load() -> Optional[ct.CDLL]:
@@ -80,14 +109,11 @@ def _load() -> Optional[ct.CDLL]:
         _tried = True
         if os.environ.get("NAF_TPU_NO_NATIVE"):
             return None
-        src = os.path.join(_DIR, "naf_native.cpp")
-        if not os.path.exists(_SO) or (
-            os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(_SO)
-        ):
-            if not _build():
-                return None
+        so = _so_path()
+        if not os.path.exists(so) and not _build(so):
+            return None
         try:
-            lib = ct.CDLL(_SO)
+            lib = ct.CDLL(so)
         except OSError:
             return None
         u8p = ct.c_void_p

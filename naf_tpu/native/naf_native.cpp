@@ -1,9 +1,9 @@
 // naf_tpu native fast path — host-side hot loops.
 //
-// The TPU compute path (Pallas kernels, shard_map pipeline) handles
-// device-resident data; this library is the *host runtime*: a fused
-// single-pass FASTA/FASTQ scanner (classification + replacement + length
-// accounting + case-mask RLE + 4-bit packing in one traversal) and fused
+// The device path (JAX shard_map pipeline) handles device-resident data;
+// this library is the *host runtime*: a fused single-pass FASTA/FASTQ
+// scanner (classification + replacement + length accounting + case-mask
+// RLE + 4-bit packing in one traversal) and fused
 // decode renderers (nibble unpack + mask + line wrap + record assembly).
 //
 // Semantics replicate the reference NAF tools bug-for-bug (see
@@ -1794,7 +1794,9 @@ uint64_t naf_render_mt(int32_t mode,
 
   {
     std::vector<std::thread> th;
-    uint64_t step = ((total_chars / T) + 1) & ~(uint64_t)1;
+    // even-sized slices (each starts on a packed byte) that cover every
+    // char: round the per-thread share UP before aligning
+    uint64_t step = (((total_chars + T - 1) / T) + 1) & ~(uint64_t)1;
     for (uint32_t t = 0; t < T; t++) {
       uint64_t a = std::min((uint64_t)t * step, total_chars);
       uint64_t b = std::min(a + step, total_chars);

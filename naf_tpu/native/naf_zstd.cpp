@@ -7,7 +7,7 @@
 // engine remain fully reference-compatible.
 //
 // Design: greedy hash-table LZ77 match finding (the data-parallel half —
-// the same per-position hashing/scoring the Pallas device kernel computes),
+// the same per-position hashing/scoring the JAX device kernel computes),
 // then the inherently-serial bitstream packing: 128 KB blocks, Huffman
 // literals (canonical 11-bit code, direct or FSE-compressed weights, 1 or
 // 4 backward streams), sequences coded with the spec's PREDEFINED FSE

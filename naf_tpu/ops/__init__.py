@@ -1,1 +1,1 @@
-"""Device ops: Pallas/XLA kernels and their host (numpy) counterparts."""
+"""Device ops: XLA array programs and their host (numpy) counterparts."""

@@ -4,9 +4,9 @@ The zstd bitstream is inherently serial, but match *finding* is the
 data-parallel 99% of the work.  This kernel computes, for every input
 position, the K closest earlier positions sharing the same 4-byte window —
 with a sort instead of a hash table (hash tables are sequential-write; a
-(key, position) sort is how you express "group equal windows" on a TPU):
+(key, position) sort is how you express "group equal windows" in XLA):
 
-    keys      = hash32(window4(data))          # gather + multiply, VPU
+    keys      = hash32(window4(data))          # gather + multiply
     order     = argsort(keys, stable)          # XLA sort, runs on device
     cand[p,j] = j-th previous position in p's equal-key run
 

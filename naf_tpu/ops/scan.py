@@ -22,103 +22,37 @@ import jax.numpy as jnp
 
 from ..utils.jaxenv import setup_jax
 
-setup_jax()   # persistent compile cache (remote TPU compiles are expensive)
+setup_jax()   # persistent compile cache
 
 from ..format import constants as C
 from . import tables as T
 
 _GT = ord(">")
-
-#: MXU scan chunk width (the systolic array's native tile)
-_MXU = 128
 _NEG = -(1 << 30)
 
-# TPU cost model note (measured on v5e through this kernel family): XLA
-# gathers AND scatters at per-byte granularity run ~0.1 GB/s (element-at-a-
-# time lowering) — even a 256-entry LUT gather.  1-D cumsum/associative_scan
-# additionally has super-linear COMPILE time (stride-2 lane relayouts per
-# tree level; 150 s+ at 2^20 elements).  Everything below therefore avoids
-# both: prefix sums ride the MXU as lower-triangular matmuls, max-scans use
-# 7 static lane-shifts per 128-chunk, and boolean LUTs are bit-packed words
-# + an 8-way select chain (pure VPU).  Compile is flat (~1-3 s per op at any
-# size) and runtime is vector-speed.
+
+def cumsum_i32(mask) -> jnp.ndarray:
+    """Inclusive i32 prefix sum (of a boolean mask or an i32 vector)."""
+    return jnp.cumsum(mask.astype(jnp.int32))
 
 
-def _mm_cumsum_i32(x: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive prefix-sum of an i32 vector via tril matmuls (carry levels)."""
-    n = x.shape[0]
-    if n <= 8192:
-        return jnp.cumsum(x)
-    if n % _MXU:
-        pad = _MXU - n % _MXU
-        padded = jnp.concatenate([x, jnp.zeros(pad, x.dtype)])
-        return _mm_cumsum_i32(padded)[:n]
-    C = n // _MXU
-    y = x.reshape(C, _MXU)
-    tri = jnp.tril(jnp.ones((_MXU, _MXU), jnp.int32))
-    within = y @ tri.T                        # [C, 128] prefix within chunks
-    totals = within[:, -1]
-    carry = _mm_cumsum_i32(totals) - totals   # exclusive carry per chunk
-    return (within + carry[:, None]).reshape(n)
-
-
-def _cumsum_i32(mask) -> jnp.ndarray:
-    """Inclusive prefix count of a boolean mask.
-
-    First level feeds the MXU's int8 mode (chunk sums <= 128 are exact in
-    the i32 accumulator); carry levels recurse on the 128x-smaller totals
-    in i32.  Arbitrary lengths are zero-padded up to the chunk width (a
-    ragged tail would otherwise fall back to the 1-D cumsum, whose TPU
-    compile time blows up super-linearly).
-    """
-    n = mask.shape[0]
-    if n <= 8192:
-        return jnp.cumsum(mask.astype(jnp.int32))
-    if n % _MXU:
-        pad = _MXU - n % _MXU
-        padded = jnp.concatenate([mask, jnp.zeros(pad, mask.dtype)])
-        return _cumsum_i32(padded)[:n]
-    y = mask.astype(jnp.int8).reshape(n // _MXU, _MXU)
-    tri = jnp.tril(jnp.ones((_MXU, _MXU), jnp.int8))
-    within = jax.lax.dot_general(y, tri.T, (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-    totals = within[:, -1]
-    carry = _mm_cumsum_i32(totals) - totals
-    return (within + carry[:, None]).reshape(n)
-
-
-def _chunk_max_scan(v: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive max-scan of an i32 vector: 7 static lane-shift maxes within
-    each 128-chunk + a recursive carry over chunk totals."""
-    m = v.shape[0]
-    if m <= 8192:
-        return jax.lax.associative_scan(jnp.maximum, v)
-    if m % _MXU:
-        pad = _MXU - m % _MXU
-        padded = jnp.concatenate([v, jnp.full(pad, _NEG, v.dtype)])
-        return _chunk_max_scan(padded)[:m]
-    y = v.reshape(m // _MXU, _MXU)
-    for s in (1, 2, 4, 8, 16, 32, 64):
-        sh = jnp.pad(y, ((0, 0), (s, 0)), constant_values=_NEG)[:, :-s]
-        y = jnp.maximum(y, sh)
-    totals = y[:, -1]
-    carry = _chunk_max_scan(totals)
-    carry = jnp.concatenate([jnp.full((1,), _NEG, v.dtype), carry[:-1]])
-    return jnp.maximum(y, carry[:, None]).reshape(m)
+def maxscan_i32(v: jnp.ndarray) -> jnp.ndarray:
+    """Inclusive i32 prefix max."""
+    return jax.lax.cummax(v)
 
 
 def _seg_start_bcast(rec_start, values, fallback):
     """Per byte: ``values`` at its record's marker; ``fallback`` before the
     first marker.  Works because marker values here (positions, prefix
     counts) are non-decreasing, so a masked max-scan picks the last one."""
-    m = _chunk_max_scan(jnp.where(rec_start, values, _NEG))
+    m = maxscan_i32(jnp.where(rec_start, values, _NEG))
     return jnp.where(m == _NEG, fallback, m)
 
 
 def _hist_cond(mask, b):
     """i32[256] histogram of bytes ``b`` where ``mask`` — guarded by a cond
     so the overwhelmingly common clean case (no unexpected chars) skips the
-    ~0.1 GB/s TPU scatter-add entirely."""
+    scatter-add entirely."""
     def compute(_):
         return jnp.zeros(256, jnp.int32).at[
             jnp.where(mask, b.astype(jnp.int32), 256)
@@ -129,33 +63,9 @@ def _hist_cond(mask, b):
     return jax.lax.cond(jnp.any(mask), compute, lambda _: zero, 0)
 
 
-_WORD_CACHE: dict = {}
-
-
-def _bool_words(tab):
-    """numpy bool[256] -> u32[8] bit-packed (cached per table object)."""
-    import numpy as np
-
-    key = id(tab)
-    w = _WORD_CACHE.get(key)
-    if w is None:
-        t = np.asarray(tab, bool)
-        w = np.zeros(8, np.uint32)
-        for c in np.flatnonzero(t):
-            w[c >> 5] |= np.uint32(1) << (int(c) & 31)
-        _WORD_CACHE[key] = w
-    return w
-
-
 def _lut_bool(b: jnp.ndarray, tab) -> jnp.ndarray:
-    """Boolean 256-entry LUT as an 8-way word select + bit test (VPU-speed;
-    a jnp gather of the same table measures ~0.1 GB/s on v5e)."""
-    w8 = _bool_words(tab)
-    h = (b >> 5).astype(jnp.int32)
-    w = jnp.full(b.shape, int(w8[0]), jnp.uint32)
-    for k in range(1, 8):
-        w = jnp.where(h == k, jnp.uint32(int(w8[k])), w)
-    return ((w >> (b & jnp.uint8(31)).astype(jnp.uint32)) & 1) != 0
+    """Boolean 256-entry LUT applied to bytes ``b``."""
+    return jnp.take(jnp.asarray(tab, bool), b.astype(jnp.int32))
 
 
 @functools.partial(jax.jit, static_argnames=("seq_type",))
@@ -193,9 +103,9 @@ def scan_fasta_block(block: jnp.ndarray, prev_byte: jnp.ndarray,
     pos = jnp.arange(B, dtype=jnp.int32)
 
     # record id per byte (marker byte belongs to the record it starts)
-    rec_id = _cumsum_i32(rec_start)
-    cum_eol = _cumsum_i32(is_eol)
-    cum_sp = _cumsum_i32(is_space)
+    rec_id = cumsum_i32(rec_start)
+    cum_eol = cumsum_i32(is_eol)
+    cum_sp = cumsum_i32(is_space)
 
     # for each byte, the position of its record's marker ('-1' for record 0)
     # and the prefix counts AT that marker (segment broadcasts); record 0
@@ -296,7 +206,7 @@ def scan_fastq_block(block: jnp.ndarray, prev_byte: jnp.ndarray,
         [jnp.asarray(T.IS_EOL)[prev_byte.astype(jnp.int32)].reshape(1),
          is_eol[:-1]]
     )
-    cum_eol = _cumsum_i32(is_eol)
+    cum_eol = cumsum_i32(is_eol)
     # byte's own line index (EOL byte belongs to the line it terminates)
     line_id = cum_eol - is_eol.astype(jnp.int32)
     lane = line_id % 4          # 0 header, 1 seq, 2 '+', 3 qual
@@ -304,7 +214,7 @@ def scan_fastq_block(block: jnp.ndarray, prev_byte: jnp.ndarray,
     rec_start = (b == jnp.uint8(ord("@"))) & prev_is_eol & (lane == 0)
 
     pos = jnp.arange(B, dtype=jnp.int32)
-    cum_sp = _cumsum_i32(is_space)
+    cum_sp = cumsum_i32(is_space)
     rec_marker = _seg_start_bcast(rec_start, pos, -1)
     eol_at_m = _seg_start_bcast(rec_start, cum_eol, 0)
     sp_at_m = _seg_start_bcast(rec_start, cum_sp, 0)
@@ -379,56 +289,16 @@ def compact(mask: jnp.ndarray, values: jnp.ndarray):
     """Stable compaction: kept values move to the front; returns (out, count).
 
     out has the same (static) length as values; positions >= count are zero.
-
-    Implemented as a stable key sort (kept elements get their output index
-    as key, dropped ones a sentinel): XLA's TPU sort runs ~2x the scatter
-    formulation's per-element rate and compiles flat, where the scatter
-    lowering is element-at-a-time (~0.1 GB/s measured on v5e even with
-    sorted/unique index hints).
+    A prefix count gives each kept value its output index; one scatter with
+    unique indices moves it there.
     """
     B = values.shape[0]
-    cum = _cumsum_i32(mask)
+    cum = cumsum_i32(mask)
     cnt = cum[-1] if B else jnp.int32(0)
     out_idx = jnp.where(mask, cum - 1, B)
-    _k, v_sorted = jax.lax.sort((out_idx, values), dimension=0, num_keys=1)
-    out = jnp.where(jnp.arange(B, dtype=jnp.int32) < cnt, v_sorted,
-                    jnp.zeros((), values.dtype))
+    out = jnp.zeros_like(values).at[out_idx].set(
+        values, mode="drop", unique_indices=True)
     return out, cnt
-
-
-def cumsum_best(x, pallas: bool = False):
-    """Inclusive i32 prefix sum: fused Pallas scan on TPU meshes (the MXU
-    tril formulation below measures ~0.4 GB/s on v5e), XLA elsewhere."""
-    if pallas:
-        from .scan_fused import cumsum_i32_pallas
-
-        return cumsum_i32_pallas(x)
-    return _cumsum_i32(x)
-
-
-def maxscan_best(v, pallas: bool = False):
-    """Inclusive i32 prefix max with the same dispatch rule."""
-    if pallas:
-        from .scan_fused import maxscan_i32_pallas
-
-        return maxscan_i32_pallas(v)
-    return _chunk_max_scan(v)
-
-
-def compact_best(mask, values, pallas: bool, dense: bool = False):
-    """compact() with the TPU Pallas kernels when the caller's mesh is a
-    TPU (static flag, so chipless AOT pre-compilation matches the chip
-    trace); the sort formulation elsewhere.  ``dense`` picks the
-    candidate-merge kernel for mostly-keep streams (sequence/quality);
-    it self-checks per tile and lax.cond-falls back to the general
-    butterfly+merge kernel when the keep pattern is too holey."""
-    if pallas:
-        from .compact import compact_u8_dense, compact_u8_pallas
-
-        if dense:
-            return compact_u8_dense(values, mask)
-        return compact_u8_pallas(values, mask)
-    return compact(mask, values)
 
 
 @jax.jit
@@ -442,21 +312,18 @@ def pack_even(seq_padded: jnp.ndarray) -> jnp.ndarray:
     return codes[0::2] | (codes[1::2] << 4)
 
 
-@functools.partial(jax.jit, static_argnames=("pallas",))
-def longest_line_block(seq_keep: jnp.ndarray, is_eol: jnp.ndarray,
-                       pallas: bool = False) -> jnp.ndarray:
+@jax.jit
+def longest_line_block(seq_keep: jnp.ndarray, is_eol: jnp.ndarray) -> jnp.ndarray:
     """Max kept-chars between EOLs within the block (line-length reduce).
 
     Scan formulation: kept-count at each EOL minus kept-count at the
-    previous EOL, plus the trailing open line.  The obvious per-byte
-    scatter-add (``.at[line_id].add``) lowers element-at-a-time on TPU
-    (~0.1 GB/s measured on v5e) and was the stats pass's hidden bottleneck.
+    previous EOL, plus the trailing open line.
     """
     B = seq_keep.shape[0]
     if B == 0:
         return jnp.int32(0)
-    cum = cumsum_best(seq_keep, pallas)           # inclusive kept count
-    A = maxscan_best(jnp.where(is_eol, cum, _NEG), pallas)  # cum @ last EOL
+    cum = cumsum_i32(seq_keep)                   # inclusive kept count
+    A = maxscan_i32(jnp.where(is_eol, cum, _NEG))   # cum @ last EOL
     Aprev = jnp.concatenate([jnp.full((1,), _NEG, jnp.int32), A[:-1]])
     base = jnp.where(Aprev == _NEG, 0, Aprev)
     line_at_eol = jnp.where(is_eol, cum - base, 0)

@@ -3,23 +3,18 @@
 Reference behavior: unnaf writes two ASCII chars per packed byte through a
 256->u16 LUT (unnaf/src/utils.c:74-83, output.c:433-454).
 
-TPU design: nibble split on the VPU + arithmetic 16-way select for the
-code->char map, interleave via a (m, 2) reshape.  RNA renders code 1 as 'U'
+Device form: nibble split + a 16-way select for the code->char map,
+interleave via a (m, 2) reshape.  RNA renders code 1 as 'U'
 (unnaf/src/unnaf.c:369).
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 
 from ..utils.lazy import LazyModule, lazy_jit
 
-jax = LazyModule("jax")
 jnp = LazyModule("jax.numpy")
-pl = LazyModule("jax.experimental.pallas")
-pltpu = LazyModule("jax.experimental.pallas.tpu")
 
 from ..format import constants as C
 
@@ -28,7 +23,7 @@ _RNA_CHARS = tuple(C.CODE_TO_NUC_RNA.tolist())
 
 
 def _code_to_char(codes: jnp.ndarray, rna: bool) -> jnp.ndarray:
-    """4-bit codes -> ASCII, arithmetically (i32 compute; see pack.py)."""
+    """4-bit codes -> ASCII via a 16-way select."""
     chars = _RNA_CHARS if rna else _DNA_CHARS
     ci = codes.astype(jnp.int32)
     out = jnp.full_like(ci, chars[15])
@@ -49,80 +44,17 @@ def unpack_4bit_xla(packed: jnp.ndarray, rna: bool = False) -> jnp.ndarray:
     return _unpack_array(packed, rna)
 
 
-# ---------------------------------------------------------------------------
-# Pallas TPU kernel
-# ---------------------------------------------------------------------------
-
-_LANES = 128
-
-
-def _unpack_kernel(rna: bool, packed_ref, out_ref):
-    # both chars of a packed byte leave as one u16 lane (low nibble's char
-    # in the low byte).  Materializing the interleaved u8 stream ON DEVICE
-    # costs a minor-dim relayout (~2.5 GB/s on v5e whichever way it's
-    # spelled: stack, bitcast, or strided write); emitting u16 keeps the
-    # kernel at memory speed and lets consumers pick the cheap exit — a
-    # host fetch views the little-endian u16 buffer as bytes for free.
-    x = packed_ref[:].astype(jnp.int32)  # widen: no 8-bit vector shifts on TPU
-    lo = _code_to_char(x & 15, rna).astype(jnp.int32)
-    hi = _code_to_char(x >> 4, rna).astype(jnp.int32)
-    out_ref[:] = (lo | (hi << 8)).astype(jnp.uint16)
-
-
-@lazy_jit(static_argnames=("rna", "interpret"))
-def unpack_4bit_pallas_u16(packed: jnp.ndarray, rna: bool = False,
-                           interpret: bool = False) -> jnp.ndarray:
-    """packed: u8[M] -> u16[M]; lane i holds chars (2i, 2i+1), low byte
-    first.  The device-resident form — view the bytes on host for free."""
-    m = packed.shape[0]
-    assert m % _LANES == 0, m
-    rows = m // _LANES
-    block_rows = min(rows, 2048)
-    grid = (pl.cdiv(rows, block_rows),)
-    spec = pl.BlockSpec((block_rows, _LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    x2 = packed.reshape(rows, _LANES)
-    out16 = pl.pallas_call(
-        functools.partial(_unpack_kernel, rna),
-        out_shape=jax.ShapeDtypeStruct((rows, _LANES), jnp.uint16),
-        grid=grid,
-        in_specs=[spec],
-        out_specs=spec,
-        interpret=interpret,
-    )(x2)
-    return out16.reshape(m)
-
-
-@lazy_jit(static_argnames=("rna", "interpret"))
-def unpack_4bit_pallas(packed: jnp.ndarray, rna: bool = False,
-                       interpret: bool = False) -> jnp.ndarray:
-    """packed: u8[M] -> u8[2M] interleaved ASCII, device-resident.
-
-    Pays the on-device interleave relayout; prefer the u16 variant plus a
-    host-side view when the result is leaving the device anyway.
-    """
-    m = packed.shape[0]
-    out16 = unpack_4bit_pallas_u16(packed, rna=rna, interpret=interpret)
-    rows = m // _LANES
-    # u16 -> (u8, u8) little-endian: low byte first = low nibble's char
-    return jax.lax.bitcast_convert_type(
-        out16.reshape(rows, _LANES), jnp.uint8).reshape(2 * m)
-
-
 def unpack_4bit(packed_np: np.ndarray, total_chars: int, rna: bool = False,
                 backend: str | None = None) -> np.ndarray:
     """Host wrapper: unpack 4-bit codes to `total_chars` ASCII bytes."""
-    from .pack import bucket_size, default_backend  # avoid cycle at import time
+    from .pack import bucket_size  # avoid cycle at import time
 
     packed_np = np.ascontiguousarray(packed_np, dtype=np.uint8)
     if packed_np.size == 0:
         return np.zeros(0, dtype=np.uint8)
     m = packed_np.size
-    backend = backend or default_backend(2 * m)
-    if backend == "pallas":
-        padded = np.pad(packed_np, (0, bucket_size(m, _LANES) - m))
-        out16 = np.asarray(unpack_4bit_pallas_u16(jnp.asarray(padded), rna=rna))
-        out = out16.view(np.uint8)   # free interleave (little-endian host)
-    elif backend == "numpy":
+    backend = backend or "numpy"
+    if backend == "numpy":
         lut = C.CODES_TO_NUCS_RNA if rna else C.CODES_TO_NUCS_DNA
         out = lut[packed_np].reshape(-1)
     else:

@@ -2,10 +2,10 @@
 
 Runs the same two-pass device block-encode as ``pipeline.encode_sharded``,
 but over a *global* mesh spanning every process started under
-``jax.distributed.initialize`` (a TPU pod slice, or multi-process CPU in
+``jax.distributed.initialize`` (one process per card or host, or multi-process CPU in
 tests).  Each process feeds only the block shards its addressable devices
 own; the collectives inside pass 1 (psum histograms, pmax line length,
-all_gather counts) ride ICI/DCN; pass 2's *compacted* per-block payloads
+all_gather counts) run across processes; pass 2's *compacted* per-block payloads
 are gathered with ``multihost_utils.process_allgather`` — O(payload)
 traffic, never per-input-byte metadata — and stitched with the same carry
 algebra as the single-process path, so the archive is byte-identical to
@@ -29,7 +29,6 @@ import numpy as np
 from ..format import constants as C
 from ..pipeline import parser as P
 from ..pipeline.encoder import EncodeOptions, EncodeStats
-from .mesh import BLOCK_AXIS
 
 
 def _count(traffic: Optional[dict], nbytes: int) -> None:
@@ -104,9 +103,9 @@ def _run_passes(data: bytes, opts: EncodeOptions, traffic: Optional[dict],
     (plain path) or compress its local shards in place (extended path).
     """
     import jax
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as PS
 
     from .block import make_blocks, make_blocks_fastq
+    from .mesh import block_mesh, block_sharding
     from . import pipeline as PL
 
     fmt, marker = P.detect_format(data)
@@ -121,10 +120,9 @@ def _run_passes(data: bytes, opts: EncodeOptions, traffic: Optional[dict],
     if opts.well_formed and not PL._wf_device_safe(body, fastq):
         raise _HostFallback("wf-divergent input")
 
-    devices = jax.devices()
-    D = len(devices)
-    mesh = Mesh(np.asarray(devices), (BLOCK_AXIS,))
-    sharding = NamedSharding(mesh, PS(BLOCK_AXIS))
+    mesh = block_mesh()
+    D = mesh.devices.size
+    sharding = block_sharding(mesh)
 
     if fastq:
         mb = make_blocks_fastq(body, D)
@@ -142,7 +140,8 @@ def _run_passes(data: bytes, opts: EncodeOptions, traffic: Optional[dict],
     prev_d = to_global(blocks.prev)
     sis_d = to_global(blocks.starts_in_seq)
 
-    from .block import emit_blocks_sharded, stats_blocks_sharded
+    from .block import (
+        PassStats, emit_blocks_sharded, emit_caps, stats_blocks_sharded)
 
     st = stats_blocks_sharded(blocks_d, prev_d, sis_d,
                               seq_type=opts.seq_type, fastq=fastq, mesh=mesh)
@@ -158,21 +157,14 @@ def _run_passes(data: bytes, opts: EncodeOptions, traffic: Optional[dict],
     if opts.strict and any(int(h.sum()) for h in hists):
         raise _HostFallback("strict input has unexpected chars")
 
-    if text_like:
-        p_cap = PL._bucket(int(counts.max(initial=2)) + 1)
-    else:
-        p_cap = PL._bucket(int((counts + 1).max(initial=2) // 2) + 1)
-    id_cap = PL._bucket(max(int(id_bytes.max(initial=1)), 1))
-    com_cap = PL._bucket(max(int(com_bytes.max(initial=1)), 1))
-    r_cap = PL._bucket(int(n_rec.max(initial=0)) + 1)
-    m_cap = 2 if text_like else PL._bucket(max(int(n_runs.max(initial=2)), 2))
-    q_cap = PL._bucket(max(int(qual_bytes.max(initial=1)), 1)) if fastq else 16
+    caps = emit_caps(PassStats(counts, id_bytes, com_bytes, qual_bytes,
+                               n_rec, n_runs, first_lower, longest, hists),
+                     fastq=fastq, text_like=text_like)
 
     em = emit_blocks_sharded(
         blocks_d, prev_d, sis_d, st[1],
         seq_type=opts.seq_type, fastq=fastq, mesh=mesh,
-        p_cap=p_cap, id_cap=id_cap, com_cap=com_cap, r_cap=r_cap,
-        m_cap=m_cap, q_cap=q_cap, pack_nibbles=not text_like)
+        pack_nibbles=not text_like, **caps)
 
     return (D, fmt, counts, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
             first_lower, longest, hists, em)
@@ -405,7 +397,7 @@ def encode_multihost_extended(data: bytes,
     quality) bytes into independent extended-format frames; only the
     compressed frames plus O(blocks + records) metadata are allgathered.
     The plain path (``encode_multihost``) ships the uncompressed payloads —
-    fine for small inputs, not for a pod.  Pass ``traffic={}`` to receive
+    fine for small inputs, not for large multi-host runs.  Pass ``traffic={}`` to receive
     the total gathered byte count (asserted ≈ compressed size in
     tests/test_multihost.py).
     """

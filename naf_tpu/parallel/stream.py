@@ -15,7 +15,7 @@ stream.
 This closes the "``tnaf --device`` reads the whole input into RAM" gap: the
 device path now encodes arbitrarily large inputs at O(chunk) host memory,
 matching the reference's streaming envelope (ennaf/src/process.c:430-544,
-1 MB parse buffers) while keeping the pod-shaped device traffic of
+1 MB parse buffers) while keeping the payload-shaped device traffic of
 parallel/block.py (compacted payloads only).
 
 Shape discipline: chunk columns and emit capacities are sticky
@@ -33,21 +33,14 @@ from .. import native
 from ..format import constants as C
 from ..ops.mask import runs_to_units
 from .block import (
-    blob_from_lens, emit_blocks_sharded, fused_blocks_fastq_sharded,
-    fused_blocks_sharded, make_blocks, make_blocks_fastq,
-    stats_blocks_sharded, stitch_lengths, stitch_runs,
+    _bucket, blob_from_lens, emit_caps, emit_pass, make_blocks,
+    make_blocks_fastq, stats_pass, stitch_lengths, stitch_runs,
+    upload_blocks,
 )
 
 _GT = ord(">")
 _AT = ord("@")
 _LF = ord("\n")
-
-
-def _bucket(n: int, align: int = 16) -> int:
-    m = align
-    while m < n:
-        m *= 2
-    return m
 
 
 def _merge_hist(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
@@ -194,9 +187,13 @@ class DeviceScanEngine:
             # per-block retry (SURVEY §5 failure detection): a device fault
             # on this chunk requeues it to the host scanner — the carry
             # algebra is shared, so the archive stays byte-identical and
-            # later chunks can return to the device
+            # later chunks can return to the device.  NAF_TPU_NO_FALLBACK=1
+            # re-raises, as the in-memory encoder does.
+            import os
             import warnings
 
+            if os.environ.get("NAF_TPU_NO_FALLBACK") == "1":
+                raise
             warnings.warn(
                 f"naf_tpu: device scan failed ({type(e).__name__}: {e}); "
                 "chunk requeued to host scanner")
@@ -211,116 +208,20 @@ class DeviceScanEngine:
 
     def _passes(self, blocks, *, fastq: bool, seq_type: int,
                 parity_odd_in: bool):
-        import os
-
-        import jax
-        import jax.numpy as jnp
-
-        from .mesh import block_sharding
-
-        D = self.D
-        cols = max(_bucket(blocks.data.shape[1], align=256), self._cols)
-        self._cols = cols
-        data = blocks.data
-        if data.shape[1] < cols:
-            pad = np.full((D, cols - data.shape[1]), _LF, np.uint8)
-            data = np.concatenate([data, pad], axis=1)
-
-        sharding = block_sharding(self.mesh)
-        blocks_d = jax.device_put(jnp.asarray(data), sharding)
-        prev_d = jax.device_put(jnp.asarray(blocks.prev), sharding)
-        sis_d = jax.device_put(jnp.asarray(blocks.starts_in_seq), sharding)
-
-        # fused single-pass protocol first (same gating as encode_sharded);
-        # a None parse (sparse overflow / unexpected chars) or any device
-        # fault falls through to the two-pass path below
-        fused_on = os.environ.get("NAF_TPU_NO_FUSED") != "1" and (
-            self.mesh.devices.flat[0].platform == "tpu"
-            or os.environ.get("NAF_TPU_FUSED") == "1")
-        if fused_on and seq_type <= C.SEQ_TYPE_RNA:
-            try:
-                out = self._passes_fused(
-                    blocks_d, prev_d, sis_d, fastq=fastq,
-                    seq_type=seq_type, parity_odd_in=parity_odd_in)
-                if out is not None:
-                    return out
-            except Exception as e:
-                if os.environ.get("NAF_TPU_NO_FALLBACK") == "1":
-                    raise
-                import warnings
-
-                warnings.warn(
-                    f"naf_tpu: fused chunk encode failed "
-                    f"({type(e).__name__}: {e}); two-pass protocol")
-
-        st = stats_blocks_sharded(blocks_d, prev_d, sis_d,
-                                  seq_type=seq_type, fastq=fastq,
-                                  mesh=self.mesh)
-        (counts, _odd, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
-         first_lower, longest) = [np.asarray(o) for o in st[:9]]
-        hists = [np.asarray(o) for o in st[9:]]
-
-        caps = {
-            "p_cap": _bucket(int((counts + 1).max(initial=2) // 2) + 1),
-            "id_cap": _bucket(max(int(id_bytes.max(initial=1)), 1)),
-            "com_cap": _bucket(max(int(com_bytes.max(initial=1)), 1)),
-            "r_cap": _bucket(int(n_rec.max(initial=0)) + 1),
-            "m_cap": _bucket(max(int(n_runs.max(initial=2)), 2)),
-            "q_cap": (_bucket(max(int(qual_bytes.max(initial=1)), 1))
-                      if fastq else 16),
-        }
-        for k, v in caps.items():           # sticky: bound recompiles
+        # sticky shapes: the block width and every emit capacity only grow,
+        # so a long stream compiles each pass a handful of times
+        self._cols = max(_bucket(blocks.data.shape[1], align=256), self._cols)
+        dev = upload_blocks(blocks, self.mesh, cols=self._cols)
+        st = stats_pass(dev, mesh=self.mesh, seq_type=seq_type, fastq=fastq)
+        caps = emit_caps(st, fastq=fastq, text_like=False)
+        for k, v in caps.items():
             caps[k] = max(v, self._caps.get(k, 0))
         self._caps.update(caps)
-
-        # the emit pass needs GLOBAL nibble parity, which for a chunked
-        # stream includes every previous chunk — fold the carry in on host
-        prefix = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        odd_np = ((int(parity_odd_in) + prefix) % 2).astype(bool)
-        odd_d = jax.device_put(jnp.asarray(odd_np), sharding)
-
-        em = emit_blocks_sharded(
-            blocks_d, prev_d, sis_d, odd_d,
-            seq_type=seq_type, fastq=fastq, mesh=self.mesh, **caps)
-        em_np = [np.asarray(o) for o in em]
-        return (counts, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
-                first_lower, longest, hists, em_np)
-
-    def _passes_fused(self, blocks_d, prev_d, sis_d, *, fastq: bool,
-                      seq_type: int, parity_odd_in: bool):
-        """Single-pass fused chunk encode -> the _passes result tuple, or
-        None when the chunk needs the two-pass path."""
-        import jax
-        import jax.numpy as jnp
-
-        from .mesh import replicated
-        from .pipeline import parse_fused_fasta, parse_fused_fastq
-
-        D = self.D
-        interpret = self.mesh.devices.flat[0].platform != "tpu"
-        pbase = jax.device_put(
-            jnp.asarray([int(parity_odd_in)], jnp.int32),
-            replicated(self.mesh))
-        zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
-        if fastq:
-            outs = fused_blocks_fastq_sharded(
-                blocks_d, prev_d, pbase, seq_type=seq_type, mesh=self.mesh,
-                interpret=interpret)
-            parsed = parse_fused_fastq(D, np.asarray(outs[3]), outs)
-        else:
-            packed_d, scal_d, tv_d, a_d = fused_blocks_sharded(
-                blocks_d, prev_d, sis_d, pbase, seq_type=seq_type,
-                mesh=self.mesh, interpret=interpret)
-            parsed = parse_fused_fasta(D, np.asarray(scal_d), packed_d,
-                                       tv_d, a_d)
-        if parsed is None:
-            return None
-        qual_bytes = parsed.get("qual_bytes",
-                                np.zeros(D, np.int64))
-        return (parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
-                qual_bytes, parsed["n_rec"], parsed["n_runs"],
-                parsed["first_lower"], parsed["longest"], zero_hists,
-                parsed["em_np"])
+        em_np = emit_pass(dev, st, caps, mesh=self.mesh, seq_type=seq_type,
+                          fastq=fastq, parity_odd_in=parity_odd_in)
+        return (st.counts, st.id_bytes, st.com_bytes, st.qual_bytes,
+                st.n_rec, st.n_runs, st.first_lower, st.longest, st.hists,
+                em_np)
 
     # -- stitching into a NativeScan-shaped result ----------------------------
 

@@ -1,10 +1,10 @@
 """NAF decoder pipeline: container -> sections -> device transform -> output.
 
-TPU-first redesign of unnaf (unnaf/src/unnaf.c, output*.c): instead of
+Array-program redesign of unnaf (unnaf/src/unnaf.c, output*.c): instead of
 streaming bytes through small buffers with per-record state machines, whole
 sections are decompressed and rendered with vectorized transforms:
 
-  * 4-bit unpack     -> Pallas VPU kernel (ops.unpack)
+  * 4-bit unpack     -> nibble LUT (native runtime / ops.unpack)
   * mask application -> RLE expansion via searchsorted + vector add
   * FASTA wrapping   -> output-index gather (ops.render)
   * record assembly  -> ragged scatter (ops.assemble)

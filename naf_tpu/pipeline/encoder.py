@@ -1,6 +1,6 @@
 """NAF encoder pipeline: parse -> device transform -> sections -> container.
 
-Data flow (TPU-first redesign of ennaf/src/ennaf.c:433-599):
+Data flow (array-program redesign of ennaf/src/ennaf.c:433-599):
 
     host reader ──► vectorized parse (token scan)
                         │ ids/comments/lengths (control plane, tiny)
@@ -10,8 +10,8 @@ Data flow (TPU-first redesign of ennaf/src/ennaf.c:433-599):
           ┌─────────────┼──────────────┐
           ▼             ▼              ▼
       case-mask     4-bit pack     charcount/stats
-      RLE (device   (Pallas VPU     (device scatter-add)
-      bool + host   kernel)
+      RLE (device   (native or     (device scatter-add)
+      bool + host   XLA LUT)
       run stitch)
           │             │
           ▼             ▼
@@ -153,7 +153,7 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
     store_qual = is_fastq
 
     # --- section payload construction (independent sections compress on a
-    # thread pool; zstandard releases the GIL) ------------------------------
+    # thread pool; ctypes calls into libzstd release the GIL) -------------
     level, threads = opts.level, opts.threads
 
     def compress_bytes(buf, window_log: int = 0) -> Section:

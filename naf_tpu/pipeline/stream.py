@@ -113,7 +113,7 @@ class _SectionSet:
 
 class _WriteBehind:
     """Ordered background zstd feeder: overlaps compression with the next
-    chunk's scan (zstandard releases the GIL inside compress)."""
+    chunk's scan (ctypes calls into libzstd release the GIL)."""
 
     def __init__(self):
         import queue

@@ -2,7 +2,7 @@
 
 The host data path (native scanner/renderer + zstd) never touches jax, and a
 CLI codec must not pay ~4s of device-plugin import to compress a 1 KB file.
-These helpers let the ops modules keep their jax/Pallas definitions at module
+These helpers let the ops modules keep their jax definitions at module
 scope while deferring the actual ``import jax`` (and device initialization)
 to the first device-path call.
 """

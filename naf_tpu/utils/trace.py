@@ -4,9 +4,12 @@ The reference has only ``--verbose`` progress messages (SURVEY §5); this
 subsystem adds:
 
   * ``NAF_TPU_TRACE=1``   — per-stage wall times + byte counts to stderr
-    (scan, section zstd, section unzstd, render, container);
-  * ``NAF_TPU_PROFILE=dir`` — wraps the process in a JAX profiler trace
-    (device path only; produces a TensorBoard/Perfetto trace in `dir`).
+    (scan, section zstd, section unzstd, render, container, and the
+    ``device-*`` stages with the platform they ran on); a ``--device`` CLI
+    run closes with one ``device`` line: platform, compile seconds and
+    peak device memory;
+  * ``NAF_TPU_PROFILE=dir`` — wraps a ``--device`` CLI run in a JAX
+    profiler trace (produces a TensorBoard/Perfetto trace in `dir`).
 
 Usage::
 
@@ -26,6 +29,12 @@ import time
 ENABLED = bool(os.environ.get("NAF_TPU_TRACE"))
 _PROFILE_DIR = os.environ.get("NAF_TPU_PROFILE")
 
+_COMPILE_EVENT = "/jax/core/compile/backend_compile_duration"
+
+
+def _emit(stage: str, text: str) -> None:
+    print(f"[naf-trace] {stage:<16} {text}", file=sys.stderr)
+
 
 @contextlib.contextmanager
 def trace_span(stage: str, **fields):
@@ -42,20 +51,39 @@ def trace_span(stage: str, **fields):
         mbs = ""
         if "bytes" in fields and dt > 0:
             mbs = f" ({fields['bytes'] / dt / 1048.576:.0f} MB/s)"
-        print(f"[naf-trace] {stage:<16} {dt:9.2f} ms{mbs} {extra}",
-              file=sys.stderr)
+        _emit(stage, f"{dt:9.2f} ms{mbs} {extra}")
+
+
+def trace_note(stage: str, **fields) -> None:
+    """One '[naf-trace] stage k=v ...' line (counters, not timings)."""
+    if ENABLED:
+        _emit(stage, " ".join(f"{k}={v}" for k, v in fields.items()))
 
 
 @contextlib.contextmanager
-def device_profile():
-    """JAX profiler session when NAF_TPU_PROFILE=dir is set."""
-    if not _PROFILE_DIR:
-        yield
-        return
+def device_session():
+    """Wrap a CLI's ``--device`` work: a JAX profiler trace when
+    NAF_TPU_PROFILE is set; with NAF_TPU_TRACE, a closing ``device`` line
+    with the summed XLA compile seconds and the peak device memory."""
     import jax
 
-    jax.profiler.start_trace(_PROFILE_DIR)
+    compile_s = [0.0]
+    if ENABLED:
+        def on_event(event, duration, **_kw):
+            if event == _COMPILE_EVENT:
+                compile_s[0] += duration
+
+        jax.monitoring.register_event_duration_secs_listener(on_event)
+    if _PROFILE_DIR:
+        jax.profiler.start_trace(_PROFILE_DIR)
     try:
         yield
     finally:
-        jax.profiler.stop_trace()
+        if _PROFILE_DIR:
+            jax.profiler.stop_trace()
+        if ENABLED:
+            d = jax.devices()[0]
+            peak = (d.memory_stats() or {}).get("peak_bytes_in_use")
+            trace_note("device", platform=d.platform,
+                       kind=repr(d.device_kind), compile_s=compile_s[0],
+                       peak_bytes_in_use=peak)

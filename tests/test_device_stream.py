@@ -20,6 +20,7 @@ import io
 import numpy as np
 import pytest
 
+import naf_tpu.parallel.block as B
 from naf_tpu.format import constants as C
 from naf_tpu.pipeline.encoder import EncodeOptions, encode
 from naf_tpu.pipeline.parser import InputError
@@ -191,8 +192,6 @@ class TestPerBlockRetry:
     chunk to the host scanner — byte-identical archive + warning, no abort."""
 
     def test_fault_every_chunk(self, engine_cls, monkeypatch):
-        import naf_tpu.parallel.stream as PS
-
         rng = np.random.default_rng(60)
         data = rand_fasta(rng, 40)
         ref, _ = encode(data, EncodeOptions())
@@ -200,20 +199,32 @@ class TestPerBlockRetry:
         def boom(*a, **k):
             raise RuntimeError("injected device fault")
 
-        monkeypatch.setattr(PS, "stats_blocks_sharded", boom)
-        monkeypatch.setattr(PS, "fused_blocks_sharded", boom)
-        monkeypatch.setattr(PS, "fused_blocks_fastq_sharded", boom)
+        monkeypatch.setattr(B, "stats_blocks_sharded", boom)
         eng = engine_cls()
         with pytest.warns(UserWarning, match="requeued to host scanner"):
             got = stream_bytes(data, chunk_size=300, engine=eng)
         assert got == ref
         assert eng.fault_chunks > 0 and eng.device_chunks == 0
 
+    def test_fault_reraises_under_no_fallback(self, engine_cls, monkeypatch):
+        """NAF_TPU_NO_FALLBACK=1: a device fault fails the encode instead of
+        hiding behind a still-correct archive."""
+        rng = np.random.default_rng(63)
+        data = rand_fasta(rng, 20)
+
+        def boom(*a, **k):
+            raise RuntimeError("injected device fault")
+
+        monkeypatch.setattr(B, "stats_blocks_sharded", boom)
+        monkeypatch.setenv("NAF_TPU_NO_FALLBACK", "1")
+        eng = engine_cls()
+        with pytest.raises(RuntimeError, match="injected device fault"):
+            stream_bytes(data, chunk_size=300, engine=eng)
+        assert eng.fault_chunks == 0
+
     def test_fault_once_then_recover(self, engine_cls, monkeypatch):
         """Only the faulting chunk is requeued; later chunks return to the
         device."""
-        import naf_tpu.parallel.stream as PS
-
         rng = np.random.default_rng(61)
         data = rand_fasta(rng, 60)
         ref, _ = encode(data, EncodeOptions())
@@ -227,14 +238,8 @@ class TestPerBlockRetry:
                 return real(*a, **k)
             return fn
 
-        # chunk 1 must fault through BOTH protocols (the fused attempt
-        # falls through to the two-pass path before the chunk requeues)
-        monkeypatch.setattr(PS, "stats_blocks_sharded",
-                            once_flaky(PS.stats_blocks_sharded))
-        monkeypatch.setattr(PS, "fused_blocks_sharded",
-                            once_flaky(PS.fused_blocks_sharded))
-        monkeypatch.setattr(PS, "fused_blocks_fastq_sharded",
-                            once_flaky(PS.fused_blocks_fastq_sharded))
+        monkeypatch.setattr(B, "stats_blocks_sharded",
+                            once_flaky(B.stats_blocks_sharded))
         eng = engine_cls()
         with pytest.warns(UserWarning, match="requeued to host scanner"):
             got = stream_bytes(data, chunk_size=400, engine=eng)
@@ -243,7 +248,6 @@ class TestPerBlockRetry:
         assert eng.device_chunks > 0      # recovered after the fault
 
     def test_encode_sharded_fault_falls_back(self, monkeypatch):
-        import naf_tpu.parallel.pipeline as PP
         from naf_tpu.parallel.pipeline import encode_sharded
 
         rng = np.random.default_rng(62)
@@ -253,9 +257,7 @@ class TestPerBlockRetry:
         def boom(*a, **k):
             raise RuntimeError("injected device fault")
 
-        monkeypatch.setattr(PP, "stats_blocks_packed", boom)
-        monkeypatch.setattr(PP, "fused_blocks_sharded", boom)
-        monkeypatch.setattr(PP, "fused_blocks_fastq_sharded", boom)
+        monkeypatch.setattr(B, "stats_blocks_sharded", boom)
         with pytest.warns(UserWarning, match="falling back to the"):
             blob, _ = encode_sharded(data, EncodeOptions())
         assert blob == ref

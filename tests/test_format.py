@@ -86,7 +86,7 @@ def _have_syszstd():
 @pytest.mark.skipif(not _have_syszstd(), reason="no system libzstd")
 @pytest.mark.parametrize("level", [-131072, -5, 1, 9, 19, 22])
 def test_syszstd_levels_roundtrip(level):
-    """Every CLI-reachable level produces a frame zstandard decodes."""
+    """Every CLI-reachable level produces a frame that decodes back."""
     from naf_tpu.codec import decompress_section
 
     data = (b"ACGTacgtNRYKM" * 5000)[: 60_001]
@@ -124,3 +124,117 @@ def test_syszstd_ldm_window_roundtrip():
     payload = compress_section(data, level=19, window_log=24, threads=2)
     assert decompress_section(payload, len(data)) == data
     assert len(payload) < len(unit) * 1.2         # the repeat was found
+
+
+def test_syszstd_decompress_roundtrip():
+    """libzstd decode (one-shot and streamed) of frames the zstandard
+    package writes: plain, long-window, content-size-less, empty."""
+    import zstandard
+
+    from naf_tpu.codec import syszstd
+
+    rng = np.random.default_rng(5)
+    unit = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    cases = [b"", b"ACGT" * 1000, unit + b"\x00" * (3 << 20) + unit]
+    for data in cases:
+        for kw in ({"level": 3}, {"level": 19, "write_content_size": False}):
+            frame = zstandard.ZstdCompressor(**kw).compress(data)
+            assert syszstd.decompress(frame, len(data)) == data
+            d = syszstd.SysZstdDecompressor()
+            got = b"".join(d.decompress(frame[i:i + 65521])
+                           for i in range(0, len(frame), 65521))
+            assert got == data and d.finished
+    params = zstandard.ZstdCompressionParameters.from_level(
+        19, window_log=28, enable_ldm=True)
+    big = cases[2]
+    frame = zstandard.ZstdCompressor(compression_params=params).compress(big)
+    assert syszstd.decompress(frame, len(big)) == big
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        syszstd.decompress(frame, len(big) - 1)
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        syszstd.decompress(frame, len(big) + 1)
+
+
+def test_main_path_without_zstandard(tmp_path):
+    """tnaf/untnaf (host and --device) import and round-trip with the
+    zstandard package blocked: libzstd is the default engine's only
+    entropy library."""
+    import subprocess
+    import sys
+
+    src = tmp_path / "x.fa"
+    rng = np.random.default_rng(6)
+    seq = rng.choice(np.frombuffer(b"ACGTacgtN", np.uint8), size=300_000)
+    src.write_bytes(b">r1 c\n" + b"\n".join(
+        seq[i:i + 60].tobytes() for i in range(0, seq.size, 60)) + b"\n")
+    code = f"""
+import sys
+sys.modules["zstandard"] = None
+from naf_tpu.cli import tnaf, untnaf
+for dev in ([], ["--device"]):
+    assert tnaf.main(dev + [{str(src)!r}, "-o", {str(tmp_path / "x.naf")!r}]) == 0
+    assert untnaf.main(dev + [{str(tmp_path / "x.naf")!r}, "-o", {str(tmp_path / "y.fa")!r}]) == 0
+    assert open({str(tmp_path / "y.fa")!r}, "rb").read() == open({str(src)!r}, "rb").read()
+assert sys.modules["zstandard"] is None
+print("ok")
+"""
+    from pathlib import Path
+
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       cwd=str(Path(__file__).resolve().parent.parent),
+                       timeout=600)
+    assert r.returncode == 0 and r.stdout.strip() == b"ok", r.stderr[-2000:]
+
+
+def test_missing_libzstd_names_native_engine(tmp_path, monkeypatch, capsys):
+    """Without libzstd the default engine fails with a message naming
+    --engine native; it does not switch engines silently."""
+    from naf_tpu.cli import tnaf, untnaf
+    from naf_tpu.codec import syszstd
+
+    src = tmp_path / "x.fa"
+    src.write_bytes(b">r1\n" + b"ACGT" * 50_000 + b"\n")
+    out = tmp_path / "x.naf"
+    assert tnaf.main(["--engine", "native", str(src), "-o", str(out)]) == 0
+    monkeypatch.setattr(syszstd, "load", lambda: None)
+    with pytest.raises(SystemExit) as e:
+        tnaf.main([str(src), "-o", str(tmp_path / "z.naf")])
+    assert e.value.code == 1
+    assert "--engine native" in capsys.readouterr().err
+    assert not (tmp_path / "z.naf").exists()
+    with pytest.raises(SystemExit):
+        untnaf.main([str(out), "-o", str(tmp_path / "y.fa")])
+    assert "--engine native" in capsys.readouterr().err
+    from naf_tpu.codec import set_decode_engine
+
+    try:
+        assert untnaf.main(["--engine", "native", str(out), "-o",
+                            str(tmp_path / "y.fa")]) == 0
+    finally:
+        set_decode_engine("zstd")
+    assert (tmp_path / "y.fa").read_bytes() == src.read_bytes()
+
+
+def test_syszstd_load_is_thread_safe(monkeypatch):
+    """Section compressors open libzstd from a thread pool: the first
+    concurrent callers must all get the library, never a half-set memo."""
+    import threading
+
+    from naf_tpu.codec import syszstd
+
+    monkeypatch.setattr(syszstd, "_lib", None)
+    monkeypatch.setattr(syszstd, "_loaded", False)
+    barrier = threading.Barrier(8)
+    got = []
+
+    def worker():
+        barrier.wait()
+        got.append(syszstd.load())
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert len(got) == 8 and all(g is not None for g in got)

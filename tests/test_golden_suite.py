@@ -77,7 +77,7 @@ def _run_golden(suite: str, name: str, tmp_path: Path, device: bool):
     env = dict(os.environ, TMPDIR=str(tmp_path), PYTHONPATH="")
     if device:                # virtual CPU mesh in the CLI subprocesses
         env.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-        env["JAX_PLATFORM_NAME"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
     version_test = name.endswith("-version")
     tty_test = name.endswith("-no-input")
 

@@ -3,7 +3,7 @@
 Spawns 2 python processes that `jax.distributed.initialize` against a local
 coordinator with 2 virtual CPU devices each (global mesh of 4), run the
 sharded block-encode step over a global `Mesh`, and verify the collective
-reductions and host-0 archive assembly — pod behavior on one machine
+reductions and host-0 archive assembly — multi-host behavior on one machine
 (SURVEY §4 multi-node strategy).
 """
 

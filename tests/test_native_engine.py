@@ -438,7 +438,7 @@ def test_device_engine_long_reaches_past_span_history():
 
 def test_cli_device_engine_long(tmp_path, ref_bin):
     """tnaf --engine device routes to the native engine (demoted: the JAX
-    match-finder measured a strict loss on v5e); the archives must still
+    match-finder measured a strict loss); the archives must still
     decode with the reference and deeper chains never lose to shallow."""
     from naf_tpu.cli import tnaf as T
 

@@ -8,9 +8,9 @@ from naf_tpu.ops.mask import (
     MaskEncoder, apply_mask_np, encode_run, expand_mask_np, mask_units_from_bytes,
     merge_units,
 )
-from naf_tpu.ops.pack import pack_4bit, pack_4bit_pallas, pack_4bit_xla
+from naf_tpu.ops.pack import pack_4bit, pack_4bit_xla
 from naf_tpu.ops.render import body_length, wrap_records_np
-from naf_tpu.ops.unpack import unpack_4bit, unpack_4bit_pallas, unpack_4bit_xla
+from naf_tpu.ops.unpack import unpack_4bit, unpack_4bit_xla
 
 import jax.numpy as jnp
 
@@ -63,12 +63,13 @@ def test_pack_parity_carry_across_blocks():
     assert got == whole
 
 
-def test_pack_pallas_interpret_matches_xla():
+def test_pack_xla_every_byte_matches_numpy():
+    """All 256 byte values (non-IUPAC bytes map to code 15)."""
     rng = np.random.default_rng(3)
     seq = rng.integers(0, 256, size=2048, dtype=np.uint8)
-    a = np.asarray(pack_4bit_pallas(jnp.asarray(seq), interpret=True))
-    b = np.asarray(pack_4bit_xla(jnp.asarray(seq)))
-    assert np.array_equal(a, b)
+    a = np.asarray(pack_4bit_xla(jnp.asarray(seq)))
+    codes = C.NUC_CODE[:256][seq]
+    assert np.array_equal(a, codes[0::2] | (codes[1::2] << 4))
 
 
 @pytest.mark.parametrize("backend", ["xla", "numpy"])
@@ -82,12 +83,12 @@ def test_unpack_matches_oracle(n, rna, backend):
     assert got.tobytes() == ref_unpack(packed.tobytes(), total, rna)
 
 
-def test_unpack_pallas_interpret_matches_xla():
-    rng = np.random.default_rng(5)
-    packed = rng.integers(0, 256, size=1024, dtype=np.uint8)
-    a = np.asarray(unpack_4bit_pallas(jnp.asarray(packed), interpret=True))
-    b = np.asarray(unpack_4bit_xla(jnp.asarray(packed)))
-    assert np.array_equal(a, b)
+@pytest.mark.parametrize("rna", [False, True])
+def test_unpack_xla_every_byte_matches_numpy(rna):
+    packed = np.arange(1024, dtype=np.uint32).astype(np.uint8)
+    a = np.asarray(unpack_4bit_xla(jnp.asarray(packed), rna=rna))
+    lut = C.CODES_TO_NUCS_RNA if rna else C.CODES_TO_NUCS_DNA
+    assert np.array_equal(a, lut[packed].reshape(-1))
 
 
 def test_pack_unpack_roundtrip():

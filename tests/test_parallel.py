@@ -208,15 +208,10 @@ def test_pass2_transfer_is_payload_shaped():
         _jax.device_put(jnp.asarray(blocks.starts_in_seq), sh),
         seq_type=C.SEQ_TYPE_DNA, fastq=False, mesh=mesh)
     (counts, odd, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
-     *_rest) = [np.asarray(o) for o in st[:9]]
-    caps = dict(
-        p_cap=PL._bucket(int((counts + 1).max() // 2) + 1),
-        id_cap=PL._bucket(max(int(id_bytes.max()), 1)),
-        com_cap=PL._bucket(max(int(com_bytes.max()), 1)),
-        q_cap=16,
-        r_cap=PL._bucket(int(n_rec.max()) + 1),
-        m_cap=PL._bucket(max(int(n_runs.max()), 2)),
-    )
+     first_lower, longest) = [np.asarray(o) for o in st[:9]]
+    caps = B.emit_caps(B.PassStats(counts, id_bytes, com_bytes, qual_bytes,
+                                   n_rec, n_runs, first_lower, longest, []),
+                       fastq=False, text_like=False)
     xfer = PL.device_to_host_bytes(8, caps)
     # v1 shipped >4 bytes per input byte; the packed payload alone is ~0.5
     assert xfer < 1.5 * body_n, (xfer, body_n)
@@ -339,45 +334,42 @@ def test_make_blocks_fastq_rejects_cr_and_rare_eol():
     assert make_blocks_fastq(vt, 2) is None
 
 
-def test_packed_pass_abi_matches_tuple_api():
-    """stats/emit packed single-fetch rows unpack to exactly the tuple-API
-    outputs (the multihost/stream paths still consume the tuple API, so
-    the two must stay interchangeable)."""
+def test_pass_helpers_match_tuple_api():
+    """stats_pass/emit_pass (the host helpers the in-memory and streaming
+    encoders share) return exactly the tuple-API outputs that the
+    multihost path consumes."""
+    import jax
+
     from naf_tpu.parallel.block import (
-        emit_blocks_packed, emit_blocks_sharded, make_blocks,
-        stats_blocks_packed, stats_blocks_sharded, unpack_emit,
-        unpack_stats)
+        emit_blocks_sharded, emit_caps, emit_pass, make_blocks, stats_pass,
+        stats_blocks_sharded, upload_blocks)
+    from naf_tpu.parallel.mesh import block_sharding
 
     rng = np.random.default_rng(17)
     data = _fasta(rng, n_rec=20, max_len=400)
     body = np.frombuffer(data, np.uint8)[1:]
     mesh = block_mesh(4)
     blocks = make_blocks(body, 4)
-    import jax
-
-    from naf_tpu.parallel.mesh import block_sharding
     sharding = block_sharding(mesh)
     bd = jax.device_put(jnp.asarray(blocks.data), sharding)
     pd = jax.device_put(jnp.asarray(blocks.prev), sharding)
     sd = jax.device_put(jnp.asarray(blocks.starts_in_seq), sharding)
 
     st = stats_blocks_sharded(bd, pd, sd, seq_type=0, fastq=False, mesh=mesh)
-    stp, odd_d = stats_blocks_packed(bd, pd, sd, seq_type=0, fastq=False,
-                                     mesh=mesh)
-    scalars, hists = unpack_stats(np.asarray(stp))
-    for i in range(9):
-        assert np.array_equal(scalars[i], np.asarray(st[i]).astype(
-            scalars[i].dtype)), i
+    dev = upload_blocks(blocks, mesh)
+    ps = stats_pass(dev, mesh=mesh, seq_type=0, fastq=False)
+    for i, got in enumerate((ps.counts, None, ps.id_bytes, ps.com_bytes,
+                             ps.qual_bytes, ps.n_rec, ps.n_runs,
+                             ps.first_lower, ps.longest)):
+        if got is not None:
+            assert np.array_equal(got, np.asarray(st[i]).astype(got.dtype)), i
     for k in range(8):
-        assert np.array_equal(hists[k], np.asarray(st[9 + k])), k
+        assert np.array_equal(ps.hists[k], np.asarray(st[9 + k])[:1]), k
 
-    caps = dict(p_cap=4096, id_cap=128, com_cap=128, r_cap=32, m_cap=64,
-                q_cap=16)
+    caps = emit_caps(ps, fastq=False, text_like=False)
     em = emit_blocks_sharded(bd, pd, sd, st[1], seq_type=0, fastq=False,
                              mesh=mesh, **caps)
-    pay, meta = emit_blocks_packed(bd, pd, sd, odd_d, seq_type=0,
-                                   fastq=False, mesh=mesh, **caps)
-    em2 = unpack_emit(pay, meta, **caps)
+    em2 = emit_pass(dev, ps, caps, mesh=mesh, seq_type=0, fastq=False)
     for i in range(11):
         a, b = np.asarray(em[i]), np.asarray(em2[i])
         assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), i
