@@ -24,8 +24,10 @@ Only one process uses the card at a time: the parent never imports JAX
 (device facts come from a child), and children run one after another.
 
 ``--cards 4`` instead runs phases A and C through ``encode_sharded`` and
-the gather render over a 4-card mesh, and ``encode_multihost`` with four
-processes, one card each; every archive must equal the host archive.
+the gather render over a 4-card mesh (encode and render each in a child of
+its own, so each child's per-card peak memory shows that card took part),
+and ``encode_multihost`` with four processes, one card each; every archive
+must equal the host archive.
 ``--profile DIR`` also records a JAX profiler trace of every device CLI
 call and prints each jitted program's device time and the device's busy
 time.
@@ -98,9 +100,9 @@ def _layout(headers: list, lens: np.ndarray, seq: np.ndarray,
     return out.tobytes()
 
 
-def gen_chromosome(scale: float = 1.0) -> bytes:
+def gen_chromosome() -> bytes:
     rng = np.random.default_rng(SEED)
-    n = max(int(CHR1_LEN * scale), 1000)
+    n = CHR1_LEN
     seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n, np.uint8)]
     seq = seq | (_runs(rng, n, 100, 10_001, 100, 10_001).astype(np.uint8)
                  << 5)
@@ -110,9 +112,9 @@ def gen_chromosome(scale: float = 1.0) -> bytes:
                    np.asarray([n]), seq, 60)
 
 
-def gen_reads(scale: float = 1.0) -> bytes:
+def gen_reads() -> bytes:
     rng = np.random.default_rng(SEED + 1)
-    n = max(int(1_200_000 * scale), 10)
+    n = 1_200_000
     hdr = np.frombuffer(b"".join(b"@SIM.%07d length=150\n" % i
                                  for i in range(n)), np.uint8)
     hdr = hdr.reshape(n, -1)
@@ -125,9 +127,9 @@ def gen_reads(scale: float = 1.0) -> bytes:
     return np.concatenate([hdr, seq, lf, plus, qual, lf], axis=1).tobytes()
 
 
-def gen_records(scale: float = 1.0) -> bytes:
+def gen_records() -> bytes:
     rng = np.random.default_rng(SEED + 2)
-    n = max(int(100_000 * scale), 10)
+    n = 100_000
     lens = rng.integers(500, 3001, n)
     total = int(lens.sum())
     seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, total)]
@@ -155,13 +157,9 @@ PHASES = {
 # ---------------------------------------------------------------------------
 
 class Smoke:
-    def __init__(self, cards: int, require_gpu: bool, work: Path,
-                 scale: float):
+    def __init__(self, cards: int, work: Path):
         self.cards = cards
-        self.require_gpu = require_gpu
-        self.platform = "gpu" if require_gpu else "cpu"
         self.work = work
-        self.scale = scale
 
     def env(self, device: bool, **extra) -> dict:
         env = dict(os.environ)
@@ -169,22 +167,11 @@ class Smoke:
             [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
         env["TMPDIR"] = str(self.work)
         env["NAF_TPU_NO_FALLBACK"] = "1"
-        if self.scale != 1.0:
-            # scaled-down inputs keep the same CLI paths (stream vs
-            # in-memory) as the full sizes
-            env["NAF_TPU_STREAM_THRESHOLD"] = str(int((256 << 20)
-                                                      * self.scale))
-            env["NAF_TPU_DEVICE_CHUNK"] = str(int((64 << 20) * self.scale))
         if device:
             env["CUDA_VISIBLE_DEVICES"] = ",".join(
                 str(i) for i in range(self.cards))
         else:
             env["CUDA_VISIBLE_DEVICES"] = ""       # host children: no card
-        if not self.require_gpu:
-            env["JAX_PLATFORMS"] = "cpu"
-            env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
-                                f" --xla_force_host_platform_device_count="
-                                f"{self.cards}")
         env.update({k: str(v) for k, v in extra.items()})
         return env
 
@@ -206,8 +193,8 @@ class Smoke:
                 "'count': len(d), 'jax': jax.__version__}))")
         r = self.run([sys.executable, "-c", code], device=True, timeout=300)
         info = json.loads(r.stdout.decode().strip().splitlines()[-1])
-        check(info["platform"] == self.platform,
-              f"JAX found no {self.platform} device: {info}")
+        info["startup_s"] = round(r.seconds, 3)
+        check(info["platform"] == "gpu", f"JAX found no GPU: {info}")
         check(info["count"] == self.cards,
               f"expected {self.cards} devices, JAX sees {info['count']}")
         return info
@@ -237,19 +224,18 @@ def sha(path: Path) -> str:
     return h.hexdigest()
 
 
-def device_facts(smoke: Smoke, lines: list, stages: list) -> dict:
-    """Check the device stages ran on the expected platform; returns the
-    closing 'device' line's fields plus span counts."""
+def device_facts(lines: list, stages: list) -> dict:
+    """Check the device stages ran on the GPU; returns the closing 'device'
+    line's fields plus span counts."""
     facts = {}
     for stage in stages:
         spans = [f for s, f in lines if s == stage]
         check(spans, f"no {stage} span in the trace")
         plats = {f.get("platform") for f in spans}
-        check(plats == {smoke.platform},
-              f"{stage} ran on {plats}, not {smoke.platform}")
+        check(plats == {"gpu"}, f"{stage} ran on {plats}, not the GPU")
         facts[stage] = len(spans)
     dev = [f for s, f in lines if s == "device"]
-    check(len(dev) == 1 and dev[0]["platform"] == smoke.platform,
+    check(len(dev) == 1 and dev[0]["platform"] == "gpu",
           f"device line: {dev}")
     facts.update(compile_s=float(dev[0]["compile_s"]),
                  peak_bytes_in_use=dev[0]["peak_bytes_in_use"])
@@ -259,7 +245,7 @@ def device_facts(smoke: Smoke, lines: list, stages: list) -> dict:
 def phase(smoke: Smoke, name: str, profile: Path | None):
     gen, suffix, decode_span = PHASES[name]
     t0 = time.perf_counter()
-    data = gen(smoke.scale)
+    data = gen()
     src = smoke.work / f"{name}.{suffix}"
     src.write_bytes(data)
     gen_s = time.perf_counter() - t0
@@ -281,7 +267,7 @@ def phase(smoke: Smoke, name: str, profile: Path | None):
     check(sha(host_naf) == sha(dev_naf),
           f"phase {name}: device archive != host archive")
     enc_lines = trace_lines(d_enc.stderr)
-    enc = device_facts(smoke, enc_lines, ["device-stats", "device-emit"])
+    enc = device_facts(enc_lines, ["device-stats", "device-emit"])
     stream = [f for s, f in enc_lines if s == "device-stream"]
     if name == "B":
         check(len(stream) == 1, "phase B did not take the streaming engine")
@@ -298,7 +284,7 @@ def phase(smoke: Smoke, name: str, profile: Path | None):
                       device=True, NAF_TPU_TRACE=1, **prof("decode"))
     check(sha(dev_out) == in_sha, f"phase {name}: device output != input")
     dec_lines = trace_lines(d_dec.stderr)
-    dec = device_facts(smoke, dec_lines, [decode_span])
+    dec = device_facts(dec_lines, [decode_span])
     for facts, lines in ((enc, enc_lines), (dec, dec_lines)):
         ms = {}
         for stage, f in lines:
@@ -324,9 +310,8 @@ def on_card_tests(smoke: Smoke):
                    "-p", "no:cacheprovider", "tests/test_on_chip.py"],
                   device=True, timeout=900, NAF_TPU_REAL_DEVICE=1)
     tail = r.stdout.decode("utf-8", "replace").strip().splitlines()[-1]
-    check("failed" not in tail and (
-        "passed" in tail and "skipped" not in tail
-        or not smoke.require_gpu), f"on-card tests: {tail}")
+    check("passed" in tail and "failed" not in tail
+          and "skipped" not in tail, f"on-card tests: {tail}")
     print("on-card tests:", tail, flush=True)
 
 
@@ -334,19 +319,23 @@ def on_card_tests(smoke: Smoke):
 # four cards
 # ---------------------------------------------------------------------------
 
-def mesh_child(name: str, scale: float) -> None:
-    """Child body: phase ``name`` through encode_sharded and the gather
-    render over a mesh of every visible card, checked against the host."""
-    import io
+def _card_peaks(mesh) -> list:
+    """Each card's peak bytes in use in this process; all must be > 0, so
+    no card sat idle while device 0 did the work."""
+    peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use", 0)
+             for d in mesh.devices.flat]
+    check(all(p > 0 for p in peaks), f"idle cards: {peaks}")
+    return peaks
 
-    import jax
 
+def mesh_encode_child(src: str, naf: str) -> None:
+    """Child body: encode_sharded over a mesh of every visible card,
+    checked against the host archive, which is written to ``naf``."""
     from naf_tpu.parallel.mesh import block_mesh
     from naf_tpu.parallel.pipeline import encode_sharded
-    from naf_tpu.pipeline.decoder import Decoder, DecodeOptions
     from naf_tpu.pipeline.encoder import EncodeOptions, encode
 
-    data = PHASES[name][0](scale)
+    data = Path(src).read_bytes()
     mesh = block_mesh()
     D = mesh.devices.size
     host, _ = encode(data, EncodeOptions())
@@ -354,43 +343,54 @@ def mesh_child(name: str, scale: float) -> None:
     blob, _ = encode_sharded(data, EncodeOptions(), mesh=mesh)
     enc_s = time.perf_counter() - t0
     check(blob == host, f"{D}-card archive != host archive")
+    Path(naf).write_bytes(blob)
+    print(json.dumps(dict(step="encode", cards=D, input_bytes=len(data),
+                          archive_bytes=len(blob), archive_identical=True,
+                          encode_s=round(enc_s, 3),
+                          platforms=sorted({d.platform for d in
+                                            mesh.devices.flat}),
+                          peak_bytes_in_use=_card_peaks(mesh))), flush=True)
+
+
+def mesh_decode_child(src: str, naf: str) -> None:
+    """Child body: the gather render of ``naf`` over a mesh of every
+    visible card, checked against the input ``src``."""
+    import io
+
+    from naf_tpu.parallel.mesh import block_mesh
+    from naf_tpu.pipeline.decoder import Decoder, DecodeOptions
+
+    blob = Path(naf).read_bytes()
+    mesh = block_mesh()
+    D = mesh.devices.size
     t0 = time.perf_counter()
     out = Decoder(io.BytesIO(blob), DecodeOptions()).fasta_device(mesh=mesh)
     dec_s = time.perf_counter() - t0
-    check(out == data, f"{D}-card render != input")
-    # every card held a block: none sat idle while device 0 did the work
-    peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use", 0)
-             for d in mesh.devices.flat]
-    check(all(p > 0 for p in peaks) or jax.config.jax_platforms == "cpu",
-          f"idle cards: {peaks}")
-    print(json.dumps(dict(phase=name, cards=D, input_bytes=len(data),
-                          archive_bytes=len(blob), archive_identical=True,
-                          output_identical=True, encode_s=round(enc_s, 3),
-                          decode_s=round(dec_s, 3),
+    check(out == Path(src).read_bytes(), f"{D}-card render != input")
+    print(json.dumps(dict(step="decode", cards=D, output_bytes=len(out),
+                          output_identical=True, decode_s=round(dec_s, 3),
                           platforms=sorted({d.platform for d in
                                             mesh.devices.flat}),
-                          peak_bytes_in_use=peaks)), flush=True)
+                          peak_bytes_in_use=_card_peaks(mesh))), flush=True)
 
 
-def multihost_child(pid: int, nproc: int, port: int, name: str,
-                    scale: float) -> None:
+def multihost_child(pid: int, nproc: int, port: int, src: str) -> None:
     """Child body: one process per card under jax.distributed."""
     import jax
 
-    local = None if jax.config.jax_platforms == "cpu" else [pid]
     jax.distributed.initialize(coordinator_address=f"localhost:{port}",
                                num_processes=nproc, process_id=pid,
-                               local_device_ids=local)
+                               local_device_ids=[pid])
     from naf_tpu.parallel.multihost import encode_multihost
     from naf_tpu.pipeline.encoder import EncodeOptions, encode
 
-    data = PHASES[name][0](scale)
+    data = Path(src).read_bytes()
     t0 = time.perf_counter()
     blob, _ = encode_multihost(data, EncodeOptions())
     enc_s = time.perf_counter() - t0
     host, _ = encode(data, EncodeOptions())
     check(blob == host, f"multihost archive != host archive (process {pid})")
-    print(json.dumps(dict(phase=name, process=pid, processes=nproc,
+    print(json.dumps(dict(process=pid, processes=nproc,
                           devices=len(jax.devices()),
                           local=[d.id for d in jax.local_devices()],
                           archive_identical=True,
@@ -399,25 +399,25 @@ def multihost_child(pid: int, nproc: int, port: int, name: str,
 
 
 def four_cards(smoke: Smoke) -> None:
-    scale = smoke.scale
     for name in ("A", "C"):
-        r = smoke.run([sys.executable, "-c",
-                       f"import chip_smoke; chip_smoke.mesh_child("
-                       f"{name!r}, {scale!r})"], device=True, timeout=1200)
-        print("mesh", r.stdout.decode().strip().splitlines()[-1], flush=True)
-    for name in ("A", "C"):
+        src, naf = smoke.work / f"{name}.fa", smoke.work / f"{name}.naf"
+        src.write_bytes(PHASES[name][0]())
+        for step in ("encode", "decode"):
+            r = smoke.run([sys.executable, "-c",
+                           f"import chip_smoke; chip_smoke.mesh_{step}_child("
+                           f"{str(src)!r}, {str(naf)!r})"],
+                          device=True, timeout=1200)
+            print("mesh", name, r.stdout.decode().strip().splitlines()[-1],
+                  flush=True)
+        naf.unlink()
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
-        env = smoke.env(True)
-        if not smoke.require_gpu:
-            env["XLA_FLAGS"] = env["XLA_FLAGS"].replace(
-                f"count={smoke.cards}", "count=1")
         procs = [subprocess.Popen(
             [sys.executable, "-c",
              f"import chip_smoke; chip_smoke.multihost_child("
-             f"{pid}, {smoke.cards}, {port}, {name!r}, {scale!r})"],
-            env=env, cwd=REPO, stdout=subprocess.PIPE,
+             f"{pid}, {smoke.cards}, {port}, {str(src)!r})"],
+            env=smoke.env(True), cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE) for pid in range(smoke.cards)]
         try:
             outs = [p.communicate(timeout=1200) for p in procs]
@@ -431,8 +431,9 @@ def four_cards(smoke: Smoke) -> None:
                 sys.stderr.write(e.decode("utf-8", "replace")[-3000:])
             check(p.returncode == 0, f"multihost process exited "
                                      f"{p.returncode}")
-            print("multihost", o.decode().strip().splitlines()[-1],
+            print("multihost", name, o.decode().strip().splitlines()[-1],
                   flush=True)
+        src.unlink()
 
 
 # ---------------------------------------------------------------------------
@@ -485,11 +486,9 @@ def reduce_traces(profile: Path) -> None:
 
 # ---------------------------------------------------------------------------
 
-def main(argv=None, require_gpu: bool = True) -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cards", type=int, choices=(1, 4), default=1)
-    ap.add_argument("--scale", type=float, default=1.0,
-                    help="input size factor (1.0 = the sizes above)")
     ap.add_argument("--profile", type=Path, default=None,
                     help="record profiler traces of the device calls here")
     args = ap.parse_args(argv)
@@ -498,28 +497,34 @@ def main(argv=None, require_gpu: bool = True) -> int:
 
     work = Path(tempfile.mkdtemp(prefix="naf_smoke_"))
     try:
-        smoke = Smoke(args.cards, require_gpu, work, args.scale)
-        if require_gpu:
-            smi = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader",
-                 "--id=" + ",".join(str(i) for i in range(args.cards))],
-                capture_output=True, text=True, timeout=60)
-            check(smi.returncode == 0, "nvidia-smi failed")
-            print(smi.stdout.strip(), flush=True)
+        smoke = Smoke(args.cards, work)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader",
+             "--id=" + ",".join(str(i) for i in range(args.cards))],
+            capture_output=True, text=True, timeout=60)
+        check(smi.returncode == 0, "nvidia-smi failed")
+        print(smi.stdout.strip(), flush=True)
         info = smoke.probe()
         print(f"jax {info['jax']} on {info['count']} x {info['kind']} "
-              f"({info['platform']})", flush=True)
+              f"({info['platform']}); process start to devices listed "
+              f"{info['startup_s']} s", flush=True)
+        # build the native host library (first use) before any timed call
+        r = smoke.run([sys.executable, "-c", "from naf_tpu import native; "
+                       "print(native.available())"], device=False)
+        print("native host library:", r.stdout.decode().strip(),
+              f"({r.seconds:.3f} s)", flush=True)
         if args.cards == 4:
             four_cards(smoke)
         else:
-            if args.profile is not None:
-                args.profile.mkdir(parents=True, exist_ok=True)
+            profile = args.profile.resolve() if args.profile else None
+            if profile is not None:
+                profile.mkdir(parents=True, exist_ok=True)
             for name in PHASES:
-                phase(smoke, name, args.profile)
+                phase(smoke, name, profile)
             on_card_tests(smoke)
-            if args.profile is not None:
-                reduce_traces(args.profile)
+            if profile is not None:
+                reduce_traces(profile)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {

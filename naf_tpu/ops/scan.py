@@ -289,15 +289,18 @@ def compact(mask: jnp.ndarray, values: jnp.ndarray):
     """Stable compaction: kept values move to the front; returns (out, count).
 
     out has the same (static) length as values; positions >= count are zero.
-    A prefix count gives each kept value its output index; one scatter with
-    unique indices moves it there.
+    A prefix count gives each kept value its output index; dropped
+    positions, zeroed, fill [count, B) in order.  The scatter is thus a
+    permutation: every index is in range and unique.
     """
     B = values.shape[0]
     cum = cumsum_i32(mask)
     cnt = cum[-1] if B else jnp.int32(0)
-    out_idx = jnp.where(mask, cum - 1, B)
+    out_idx = jnp.where(mask, cum - 1,
+                        cnt + jnp.arange(B, dtype=jnp.int32) - cum)
     out = jnp.zeros_like(values).at[out_idx].set(
-        values, mode="drop", unique_indices=True)
+        jnp.where(mask, values, jnp.zeros_like(values)),
+        mode="promise_in_bounds", unique_indices=True)
     return out, cnt
 
 

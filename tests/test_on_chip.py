@@ -79,7 +79,9 @@ def test_compact_on_gpu(gpu):
     out, cnt = S.compact(jnp.asarray(keep), jnp.asarray(vals))
     want = vals[keep]
     assert int(cnt) == want.size
-    assert np.array_equal(np.asarray(out)[:want.size], want)
+    out = np.asarray(out)
+    assert np.array_equal(out[:want.size], want)
+    assert not out[want.size:].any()
 
 
 def test_sharded_encode_fasta_on_gpu(gpu):
